@@ -41,20 +41,10 @@ import torch
 
 from repro_torch.backend.base import PinnedLRU, StepResult
 from repro_torch.core.copyengine import DeferredCopies
+from repro_torch.device import resolve_device
 from repro_torch.serving.scheduler import StepPlan
 
 PARAM_KEYS = ("embed", "wq", "wk", "wv", "wo")
-
-
-def resolve_device(device=None) -> torch.device:
-    """``None`` means the card; without one it raises rather than falling
-    back to the CPU.  Only an explicit ``"cpu"`` runs on the CPU."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: the port runs on the card by "
-                               "default; pass device='cpu' to run on the CPU")
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def draw_params(*, vocab: int, n_heads: int, n_kv_heads: int,

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels (nvcc into a shared library,
 bound with ctypes).
 
-Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` into
-one ``.so`` under ``<checkout>/build/kernels/``, named by a hash of the
-sources and flags, so an edited source builds anew and an unchanged one is
-reused.  A lock file serialises concurrent builds (several worker
-processes, or several tests), and the library is moved into place only
-once it is complete.
+Every ``csrc/*.cu`` source is compiled with ``nvcc`` for ``sm_90a`` (one
+``nvcc -c`` per source, all started together) and linked into one ``.so``
+under ``<checkout>/build/kernels/``, named by a hash of the sources (the
+``*.cuh`` headers included) and flags, so an edited source builds anew and
+an unchanged one is reused.  A lock file serialises concurrent builds
+(several worker processes, or several tests), and the library is moved
+into place only once it is complete.
 
 ``build_library`` runs ``nvcc`` and nothing else: it makes no CUDA call,
 so a process may call it and still fork workers that use the card.
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/src/repro_torch/kernels/_build.py -> <checkout>/build/kernels
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _sources() -> list[Path]:
@@ -48,7 +49,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources lives (built or not)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):          # sources and headers
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"repro_torch_kernels_{h.hexdigest()[:16]}.so"
@@ -69,14 +70,28 @@ def build_library() -> Path:
         if lib.exists():                       # built by another process
             return lib
         tmp = lib.with_suffix(f".tmp{os.getpid()}")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *(str(s) for s in _sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        lib.with_suffix(".log").write_text(
-            " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{s.stem}.o") for s in _sources()]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                for s, o in zip(_sources(), objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True)
+                 for c in cmds]
+        cmds.append([nvcc, "-shared", "-o", str(tmp), *map(str, objs)])
+        outs = [p.communicate()[0] for p in procs]
+        rcs = [p.returncode for p in procs]
+        if not any(rcs):
+            link = subprocess.run(cmds[-1], capture_output=True, text=True)
+            outs.append(link.stdout + link.stderr)
+            rcs.append(link.returncode)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        lib.with_suffix(".log").write_text("".join(
+            " ".join(c) + "\n" + out for c, out in zip(cmds, outs)))
+        if any(rcs):
+            bad = next(i for i, rc in enumerate(rcs) if rc)
+            raise RuntimeError(f"nvcc failed ({rcs[bad]}): "
+                               f"{' '.join(cmds[bad])}\n{outs[bad][-4000:]}")
         os.replace(tmp, lib)
     return lib
 
@@ -91,4 +106,11 @@ def load_library() -> ctypes.CDLL:
     lib.pda_launch.restype = ci
     lib.pda_smem_bytes.argtypes = [ci, ci, ci]
     lib.pda_smem_bytes.restype = ctypes.c_size_t
+    i64 = ctypes.c_int64
+    lib.fa_launch.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                              *[i64] * 12, ci, ci, ctypes.c_float, vp]
+    lib.fa_launch.restype = ci
+    lib.da_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                              *[i64] * 10, ci, ctypes.c_float, vp]
+    lib.da_launch.restype = ci
     return lib

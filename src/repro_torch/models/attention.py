@@ -1,0 +1,155 @@
+"""GQA attention with the reference's head layout: the port of
+``src/repro/models/attention.py``.
+
+``HeadLayout``/``head_layout`` are the reference's, pure Python, with ``tp``
+an argument that defaults to 1 (one card, no mesh).  The train-time
+duplicated-kv weight layout is not ported yet.
+
+Activations are ``[B, S, Hp, Dh]`` and caches ``[B, Sc, KVs, Dh]``, as in
+the reference.  ``flash_attention`` and ``decode_attention`` call the
+kernels through ``repro_torch.kernels.ops`` with transposed views of those
+tensors (``[B, H, S, D]``, ``[B, KV, S, D]``): the kernels read them through
+their strides, so no copy of an activation or of the cache is made.  On
+the CPU the same calls compute the kernels' plain versions, which the
+tests hold against the reference's jnp path.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.kernels import ops
+from repro_torch.models.layers import Norm, dense_init
+
+
+def pad_to_multiple(n: int, m: int) -> int:
+    """Round ``n`` up to the next multiple of ``m`` (``m < 1`` -> ``n``)."""
+    if m <= 1:
+        return n
+    return ((n + m - 1) // m) * m
+
+
+@dataclasses.dataclass(frozen=True)
+class HeadLayout:
+    h: int          # original q heads
+    hp: int         # padded q heads (multiple of tp)
+    kv: int         # original kv heads
+    kv_store: int   # kv heads held in weights/caches (padded if tp % kv != 0)
+    g: int          # group count after duplication (multiple of tp)
+    r: int          # duplication factor g // kv_store
+    n: int          # q heads per group = hp // g
+    d_head: int
+
+
+def head_layout(n_heads: int, n_kv_heads: int, d_head: int,
+                tp: int = 1) -> HeadLayout:
+    hp = pad_to_multiple(n_heads, tp)
+    if n_kv_heads % tp == 0:
+        kv_store, g = n_kv_heads, n_kv_heads
+    elif tp % n_kv_heads == 0:
+        kv_store, g = n_kv_heads, tp
+    else:  # e.g. whisper kv=12, tp=16: pad kv alongside q
+        kv_store, g = pad_to_multiple(n_kv_heads, tp), pad_to_multiple(n_kv_heads, tp)
+    r = g // kv_store
+    # q-group correspondence: pad q so hp is a multiple of g
+    hp = pad_to_multiple(hp, g)
+    return HeadLayout(
+        h=n_heads, hp=hp, kv=n_kv_heads, kv_store=kv_store, g=g, r=r,
+        n=hp // g, d_head=d_head,
+    )
+
+
+class Attention(nn.Module):
+    """Q/K/V/O projections (weights ``wq [d, Hp, Dh]``, ``wk``/``wv``
+    ``[d, KVs, Dh]``, ``wo [Hp, Dh, d]``), optional QKV bias and qk-norm,
+    initialised as ``repro.models.attention.attn_init``: padded heads are
+    zero, biases zero, norm scales one."""
+
+    def __init__(self, d_model: int, layout: HeadLayout, dtype, device,
+                 generator, *, bias: bool = False, qk_norm: bool = False):
+        super().__init__()
+        dh = layout.d_head
+        wq = dense_init(d_model, layout.hp * dh, dtype, device, generator)
+        wk = dense_init(d_model, layout.kv_store * dh, dtype, device, generator)
+        wv = dense_init(d_model, layout.kv_store * dh, dtype, device, generator)
+        wo = dense_init(layout.hp * dh, d_model, dtype, device, generator)
+        wq = wq.reshape(d_model, layout.hp, dh)
+        wk = wk.reshape(d_model, layout.kv_store, dh)
+        wv = wv.reshape(d_model, layout.kv_store, dh)
+        wo = wo.reshape(layout.hp, dh, d_model)
+        if wq.device.type != "meta":
+            # zero out padding so padded heads are inert
+            wq[:, layout.h:] = 0
+            wo[layout.h:] = 0
+            wk[:, layout.kv:] = 0
+            wv[:, layout.kv:] = 0
+        self.wq, self.wk, self.wv, self.wo = (nn.Parameter(w) for w in
+                                              (wq, wk, wv, wo))
+        if bias:
+            for name, n in (("bq", layout.hp), ("bk", layout.kv_store),
+                            ("bv", layout.kv_store)):
+                setattr(self, name, nn.Parameter(
+                    torch.zeros((n, dh), dtype=dtype, device=device)))
+        if qk_norm:
+            self.q_norm = Norm("rmsnorm", dh, dtype, device)
+            self.k_norm = Norm("rmsnorm", dh, dtype, device)
+
+    def project_q(self, x):
+        B, S, d = x.shape
+        q = (x @ self.wq.reshape(d, -1)).reshape(B, S, *self.wq.shape[1:])
+        if hasattr(self, "bq"):
+            q = q + self.bq.to(q.dtype)
+        if hasattr(self, "q_norm"):
+            q = self.q_norm(q)
+        return q
+
+    def project_kv(self, x):
+        B, S, d = x.shape
+        k = (x @ self.wk.reshape(d, -1)).reshape(B, S, *self.wk.shape[1:])
+        v = (x @ self.wv.reshape(d, -1)).reshape(B, S, *self.wv.shape[1:])
+        if hasattr(self, "bk"):
+            k = k + self.bk.to(k.dtype)
+            v = v + self.bv.to(v.dtype)
+        if hasattr(self, "k_norm"):
+            k = self.k_norm(k)
+        return k, v
+
+    def output_proj(self, o):
+        """o: [B, S, Hp, Dh] -> [B, S, d]."""
+        B, S = o.shape[:2]
+        return o.reshape(B, S, -1) @ self.wo.reshape(-1, self.wo.shape[-1])
+
+
+def flash_attention(q, k, v, layout: HeadLayout, *, causal: bool,
+                    window: Optional[int] = None):
+    """q: [B, S, Hp, Dh]; k, v: [B, S, KVs, Dh].  Returns [B, S, Hp, Dh].
+
+    The reference's q-block loop over static kv slices computes the same
+    function; here one kernel call does it (``ops.flash_attention``).  The
+    reference's duplicated kv groups need no copy: query head h reads kv
+    head h // (Hp / KVs) either way."""
+    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                            v.transpose(1, 2), causal=causal, window=window)
+    return o.transpose(1, 2)
+
+
+def decode_attention(q, k_cache, v_cache, cache_len, cache_positions,
+                     layout: HeadLayout, *, window: Optional[int] = None):
+    """q: [B, 1, Hp, Dh]; caches: [B, Sc, KVs, Dh].
+
+    ``cache_len`` [B] int32 is the number of valid entries and
+    ``cache_positions`` [B, Sc] int32 each slot's absolute position (both
+    may be broadcast over the batch; ``model.DecodeStep`` builds them once
+    per step).  Invalid or overwritten slots of a ring cache are masked by
+    position arithmetic, so slot order never matters."""
+    B, Sc, kvs, dh = k_cache.shape
+    if layout.hp % kvs:
+        raise ValueError(f"{layout.hp} query heads do not group onto {kvs}")
+    o = ops.decode_attention(q[:, 0], k_cache.transpose(1, 2),
+                             v_cache.transpose(1, 2), cache_len,
+                             cache_positions, window=window)
+    return o.reshape(B, 1, layout.hp, dh)
+

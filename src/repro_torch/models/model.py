@@ -1,0 +1,409 @@
+"""The model stack for the attention-only architectures: the port of
+``src/repro/models/model.py``.
+
+A model is a list of *stages*; a stage repeats ``n_periods`` identical
+*periods*; a period is a short static list of layer templates
+(``LayerSpec``).  The port builds the same plan (``build_plan``) and keeps
+the reference's parameter and cache trees, with one ``nn.ModuleList`` of
+periods per stage in place of the reference's stacked period axis:
+
+  dense (granite/olmo/qwen2) and vlm (qwen2-vl):  1 stage, period = [attn]
+  gemma3 (5 local : 1 global):                   1 stage, period = [local x5, global]
+
+The ssm, hybrid, audio (whisper) and moe families are not ported yet:
+``build_plan`` raises ``NotImplementedError`` for them (ROADMAP.md).
+
+Entry points: ``Model.forward``, ``Model.prefill``, ``Model.decode_step``,
+``Model.decode_multi`` and ``cache_specs``, with the reference's shapes.
+The cache is ``{stage: {"layer{i}": {"k", "v"}}}`` with a leading period
+axis, ``[n_periods, B, Sc, KVs, Dh]``; window layers hold a ring of
+``Sc = window`` slots once the sequence is longer.  Unlike the reference,
+``decode_step`` writes the new token's K/V into the cache it is given, in
+place, and returns that cache: a functional update would copy the whole
+cache every token.  What all layers of a call share (the rotary cos/sin
+per layer template, a decode step's lengths, write slots and slot
+positions) is computed once per call, not once per layer.
+
+Attention runs through ``repro_torch.kernels.ops``: the CUDA kernels (B3
+at prefill, B2 at decode) for tensors on the card, their plain versions
+on the CPU.  Projections, MLPs and logits are ``torch`` matrix products,
+as the reference leaves them to XLA.  Weights are drawn from an explicit
+``torch.Generator`` on an explicit device, by default the card (raising
+without one); ``repro_torch.models.convert`` carries the reference's
+weights across instead.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.attention import (
+    Attention,
+    HeadLayout,
+    decode_attention,
+    flash_attention,
+    head_layout,
+)
+from repro_torch.models.layers import (
+    MLP,
+    Norm,
+    embed_init,
+    mrope_cos_sin,
+    rope_cos_sin,
+    rotate,
+)
+
+# ---------------------------------------------------------------------------
+# stack plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSpec:
+    kind: str                       # attn | ssm | shared_attn | enc_attn | dec_attn
+    window: Optional[int] = None    # sliding-window size (None = full)
+    rope_theta: float = 10_000.0
+    causal: bool = True
+    mlp: Optional[str] = None       # None = no MLP (mamba blocks)
+    use_rope: bool = True           # whisper uses absolute positions instead
+    use_mrope: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class Stage:
+    name: str
+    specs: Tuple[LayerSpec, ...]    # layer templates within one period
+    n_periods: int
+
+
+def build_plan(cfg: ModelConfig) -> List[Stage]:
+    """The reference's plan for the decoder-only attention families; the
+    families whose modules are not ported yet raise."""
+    if cfg.family in ("ssm", "hybrid") or cfg.ssm is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family needs models/ssm.py and the "
+            f"mamba scan kernel (B4), not ported yet (ROADMAP.md)")
+    if cfg.encdec is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder family needs cross-attention "
+            f"and the encoder, not ported yet (ROADMAP.md)")
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: the moe family needs models/moe.py, not ported yet "
+            f"(ROADMAP.md)")
+
+    use_mrope = cfg.mrope_sections is not None
+    if cfg.local_global_ratio is not None:
+        local, glob = cfg.local_global_ratio
+        period = local + glob
+        if cfg.n_layers % period:
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole "
+                             f"periods of {period}")
+        specs = tuple(
+            LayerSpec(kind="attn", window=cfg.sliding_window,
+                      rope_theta=10_000.0, mlp=cfg.mlp)
+            for _ in range(local)
+        ) + tuple(
+            LayerSpec(kind="attn", window=None, rope_theta=cfg.rope_theta,
+                      mlp=cfg.mlp)
+            for _ in range(glob)
+        )
+        return [Stage("dense_lg", specs, cfg.n_layers // period)]
+
+    spec = LayerSpec(kind="attn", window=cfg.sliding_window,
+                     rope_theta=cfg.rope_theta, mlp=cfg.mlp,
+                     use_mrope=use_mrope)
+    return [Stage(cfg.family, (spec,), cfg.n_layers)]
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+
+class AttnLayer(nn.Module):
+    """norm1 -> attention -> residual; norm2 -> MLP -> residual.  Parameter
+    names follow the reference's layer tree (``norm1``, ``attn``, ``norm2``,
+    ``mlp``)."""
+
+    def __init__(self, spec: LayerSpec, cfg: ModelConfig, layout: HeadLayout,
+                 device, generator):
+        super().__init__()
+        dtype = cfg.param_dtype()
+        self.spec, self.cfg, self.layout = spec, cfg, layout
+        self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
+        self.attn = Attention(cfg.d_model, layout, dtype, device, generator,
+                              bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+        if spec.mlp is not None:
+            self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
+            self.mlp = MLP(spec.mlp, cfg.d_model, cfg.d_ff, dtype, device,
+                           generator)
+
+    def _qkv(self, x, rot):
+        """Projections, then the rotary ``rot`` = (cos, sin) of this
+        layer's template (``Model._rotations``), if it has one."""
+        h = self.norm1(x)
+        q = self.attn.project_q(h)
+        k, v = self.attn.project_kv(h)
+        if rot is not None:
+            q, k = rotate(q, *rot), rotate(k, *rot)
+        return q, k, v
+
+    def _finish(self, x, o):
+        x = x + self.attn.output_proj(o)
+        if self.spec.mlp is not None:
+            x = x + self.mlp(self.norm2(x))
+        return x
+
+    def full(self, x, rot, *, want_cache: bool):
+        """Train/prefill over the whole sequence.  Returns (y, {k, v} | None),
+        the cache entry sized to its slot (a ring of ``window`` slots when
+        the sequence is longer: slot j holds the last token with
+        ``pos % window == j``)."""
+        S = x.shape[1]
+        q, k, v = self._qkv(x, rot)
+        o = flash_attention(q, k, v, self.layout, causal=self.spec.causal,
+                            window=self.spec.window)
+        x = self._finish(x, o)
+        if not want_cache:
+            return x, None
+        w = self.spec.window
+        if w is not None and S > w:
+            k = torch.roll(k[:, -w:], S % w, dims=1)
+            v = torch.roll(v[:, -w:], S % w, dims=1)
+        return x, {"k": k, "v": v}
+
+    def decode(self, x, rot, entry, step: "DecodeStep"):
+        """One token against a cache entry [B, Sc, KVs, Dh], written in
+        place at ``step``'s slot for this cache (``DecodeStep.slots``)."""
+        q, k, v = self._qkv(x, rot)
+        kc, vc = entry["k"], entry["v"]
+        Sc = kc.shape[1]
+        ring = self.spec.window is not None and Sc <= self.spec.window
+        idx, cache_pos = step.slots(Sc, ring)
+        kc.index_copy_(1, idx, k.to(kc.dtype))
+        vc.index_copy_(1, idx, v.to(vc.dtype))
+        o = decode_attention(q, kc, vc, step.valid, cache_pos, self.layout,
+                             window=self.spec.window)
+        return self._finish(x, o)
+
+
+class DecodeStep:
+    """What every layer of one decode step shares, computed once per step
+    rather than once per layer: the valid length after the write (int32,
+    [B]) and, per cache size, the write slot and each slot's absolute
+    position (int32, [B, Sc]).
+
+    Full layers write slot ``cache_len``, clamped to the last slot as the
+    reference's dynamic_update_slice does, and slot j holds position j.
+    Window layers with ``Sc <= window`` are a ring: they write slot
+    ``cache_len % Sc``, and after the write slot j holds position
+    ``cache_len - ((cache_len - j) mod Sc)``."""
+
+    def __init__(self, cache_len, batch: int, device):
+        self.clen = torch.as_tensor(cache_len, device=device).to(torch.int32)
+        self.batch = batch
+        self.valid = (self.clen + 1).expand(batch)
+        self._slots: Dict[Tuple[int, bool], tuple] = {}
+
+    def slots(self, Sc: int, ring: bool):
+        """(write index [1] int64, slot positions [B, Sc] int32)."""
+        key = (Sc, ring)
+        if key not in self._slots:
+            clen = self.clen
+            j = torch.arange(Sc, device=clen.device, dtype=torch.int32)
+            if ring:
+                slot, pos = torch.remainder(clen, Sc), clen - torch.remainder(
+                    clen - j, Sc)
+            else:
+                slot, pos = torch.clamp(clen, max=Sc - 1), j
+            self._slots[key] = (slot.reshape(1).long(),
+                                pos.expand(self.batch, Sc))
+        return self._slots[key]
+
+
+# ---------------------------------------------------------------------------
+# the model
+# ---------------------------------------------------------------------------
+
+
+class Model(nn.Module):
+    """Embedding, stages of ``AttnLayer`` periods, final norm, logits.
+
+    ``generator`` draws the weights as the reference's ``init_params``
+    shapes them (normal, 1/sqrt(d_in) for dense weights, 0.02 for
+    embeddings, zero biases, unit norm scales); ``device=None`` means the
+    card.  On the ``meta`` device nothing is drawn (``convert`` fills the
+    weights)."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        device = resolve_device(device)
+        if device.type != "meta" and generator is None:
+            raise ValueError("weights are drawn from an explicit "
+                             "torch.Generator: pass generator=")
+        self.cfg = cfg
+        self.plan = build_plan(cfg)
+        self.layout = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        dtype = cfg.param_dtype()
+        self.embed = nn.Parameter(embed_init(cfg.padded_vocab, cfg.d_model,
+                                             dtype, device, generator))
+        self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
+        if not cfg.tie_embeddings:
+            self.lm_head = nn.Parameter(embed_init(
+                cfg.padded_vocab, cfg.d_model, dtype, device, generator))
+        self.stages = nn.ModuleDict({
+            stage.name: nn.ModuleList(
+                nn.ModuleDict({
+                    f"layer{li}": AttnLayer(spec, cfg, self.layout, device,
+                                            generator)
+                    for li, spec in enumerate(stage.specs)})
+                for _ in range(stage.n_periods))
+            for stage in self.plan})
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _logits(self, x):
+        table = self.embed if self.cfg.tie_embeddings else self.lm_head
+        return x @ table.T
+
+    def _rotations(self, positions, extras):
+        """The rotary cos/sin of each layer template, computed once per call
+        and shared by every layer of that template: {spec: (cos, sin) |
+        None}.  ``positions`` [S] or [1, 1] are the tokens' absolute
+        positions; M-RoPE templates read ``extras["mrope_positions"]``."""
+        dh = self.layout.d_head
+        out = {}
+        for spec in {s for stage in self.plan for s in stage.specs}:
+            if spec.use_mrope:
+                out[spec] = mrope_cos_sin(extras["mrope_positions"], dh,
+                                          spec.rope_theta,
+                                          self.cfg.mrope_sections)
+            elif spec.use_rope:
+                out[spec] = rope_cos_sin(positions, dh, spec.rope_theta)
+            else:
+                out[spec] = None
+        return out
+
+    def backbone(self, tokens, extras=None, *, want_cache: bool = False):
+        """Embeddings -> stages -> final norm.  Returns (hidden [B, S, d],
+        cache | None)."""
+        extras = extras or {}
+        S = tokens.shape[1]
+        x = F.embedding(tokens, self.embed)
+        rot = self._rotations(torch.arange(S, device=self.device), extras)
+        cache: Dict[str, dict] = {}
+        for stage in self.plan:
+            entries = {f"layer{li}": [] for li in range(len(stage.specs))}
+            for period in self.stages[stage.name]:
+                for li, spec in enumerate(stage.specs):
+                    x, e = period[f"layer{li}"].full(x, rot[spec],
+                                                     want_cache=want_cache)
+                    if want_cache:
+                        entries[f"layer{li}"].append(e)
+            if want_cache:
+                cache[stage.name] = {
+                    key: {n: torch.stack([e[n] for e in es]) for n in ("k", "v")}
+                    for key, es in entries.items()}
+        x = self.final_norm(x)
+        return x, (cache if want_cache else None)
+
+    def forward(self, tokens, extras=None):
+        """Full forward returning dense logits [B, S, Vp]."""
+        return self._logits(self.backbone(tokens, extras)[0])
+
+    @torch.no_grad()
+    def prefill(self, tokens, extras=None):
+        """Returns (last-token logits [B, 1, Vp], cache)."""
+        x, cache = self.backbone(tokens, extras, want_cache=True)
+        return self._logits(x[:, -1:]), cache
+
+    @torch.no_grad()
+    def decode_step(self, tokens, cache, cache_len, extras=None):
+        """One decode step: tokens [B, 1] against a cache with ``cache_len``
+        valid entries (int or 0-d tensor).  Writes the new K/V into
+        ``cache`` in place; returns (logits [B, 1, Vp], cache)."""
+        step = DecodeStep(cache_len, tokens.shape[0], self.device)
+        rot = self._rotations(step.clen.reshape(1, 1), extras or {})
+        x = F.embedding(tokens, self.embed)
+        for stage in self.plan:
+            for p, period in enumerate(self.stages[stage.name]):
+                for li, spec in enumerate(stage.specs):
+                    key = f"layer{li}"
+                    entry = {n: t[p] for n, t in cache[stage.name][key].items()}
+                    x = period[key].decode(x, rot[spec], entry, step)
+        x = self.final_norm(x)
+        return self._logits(x), cache
+
+    @torch.no_grad()
+    def decode_multi(self, tokens, cache, cache_len, n_steps: int,
+                     extras=None, *, eos_id: Optional[int] = None):
+        """Greedy decode of ``n_steps`` tokens without leaving the device:
+        argmax over the real vocabulary and EOS masking run on the card,
+        and nothing is read back to the host (the reference's ``lax.scan``
+        body, step for step).  Returns (generated [B, n_steps] int32, cache,
+        new cache_len); ``extras`` are the same for every step, as in the
+        reference.  Sequences that hit ``eos_id`` emit it thereafter."""
+        B = tokens.shape[0]
+        tok = tokens
+        clen = torch.as_tensor(cache_len, device=self.device).to(torch.int32)
+        done = torch.zeros(B, dtype=torch.bool, device=self.device)
+        out = []
+        for _ in range(n_steps):
+            logits, cache = self.decode_step(tok, cache, clen, extras)
+            nxt = logits[:, 0, :self.cfg.vocab_size].argmax(-1).to(torch.int32)
+            if eos_id is not None:
+                nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+                done = done | (nxt == eos_id)
+            out.append(nxt)
+            tok = nxt[:, None]
+            clen = clen + 1
+        return torch.stack(out, 1), cache, clen
+
+
+# ---------------------------------------------------------------------------
+# cache specs
+# ---------------------------------------------------------------------------
+
+
+def cache_specs(cfg: ModelConfig, batch: int, seq: int):
+    """The cache tree of prefill/decode as ``meta`` tensors (shape and
+    dtype): window layers hold ``min(seq, window)`` slots."""
+    layout = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    out = {}
+    for stage in build_plan(cfg):
+        st = {}
+        for li, spec in enumerate(stage.specs):
+            sc = min(seq, spec.window) if spec.window is not None else seq
+            shape = (stage.n_periods, batch, sc, layout.kv_store,
+                     layout.d_head)
+            st[f"layer{li}"] = {n: torch.empty(shape, dtype=cfg.param_dtype(),
+                                               device="meta")
+                                for n in ("k", "v")}
+        out[stage.name] = st
+    return out
+
+
+def grow_cache(cache, cfg: ModelConfig, batch: int, seq: int):
+    """A prefill cache zero-padded to ``cache_specs(cfg, batch, seq)``, as
+    the reference's callers pad theirs before decoding."""
+    out = {}
+    for stage, layers in cache_specs(cfg, batch, seq).items():
+        out[stage] = {}
+        for key, entry in layers.items():
+            out[stage][key] = {}
+            for n, spec in entry.items():
+                old = cache[stage][key][n]
+                new = old.new_zeros(spec.shape)
+                new[tuple(slice(0, s) for s in old.shape)] = old
+                out[stage][key][n] = new
+    return out

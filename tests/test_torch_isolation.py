@@ -18,8 +18,8 @@ from pathlib import Path
 import pytest
 import torch
 
-from repro_torch.backend.surrogate import resolve_device
 from repro_torch.backend.torch_backend import TorchBackend
+from repro_torch.device import resolve_device
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -49,6 +49,22 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
              for p in PORT.rglob("*.py")]
     want = {".".join(x[:-1] if x[-1] == "__init__" else x) for x in parts}
     assert want - {"repro_torch"} <= set(out["modules"])
+
+
+def test_the_model_stack_loads_no_serving_module():
+    """Models sit below the serving stack: importing them (and the kernels
+    they call) loads nothing of ``backend``, ``serving`` or ``core``."""
+    import json
+    probe = ("import json, sys\n"
+             "import repro_torch.models.convert, repro_torch.launch.quickstart\n"
+             "print(json.dumps(sorted(m for m in sys.modules if m.split('.')[:2]"
+             " in (['repro_torch', 'backend'], ['repro_torch', 'serving'],"
+             " ['repro_torch', 'core']))))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", probe], capture_output=True,
+                          text=True, timeout=120, env=env, cwd=ROOT)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout.strip().splitlines()[-1]) == []
 
 
 @pytest.mark.parametrize("path", sorted(
