@@ -38,13 +38,15 @@ fails:
    time, the profiler on);
 8. token identity of the model path: qwen2-0.5b at full width in float32,
    the same weights on the card and on the CPU (plain versions there),
-   one 64-token prompt and 16 greedy tokens must agree;
+   one 64-token prompt and 16 greedy tokens must agree (TF32 off);
 9. B2 and B3 against their plain versions on the card, float32 and
    bfloat16 (atol = rtol = 2e-5 and 2e-2), on the cases of
    tests/test_torch_attention_cuda.py: tests/test_kernels.py's edge cases,
    head dims 16/32/256, a GQA group of 48, the model's layouts at
-   qwen2-0.5b's heads, and B2 at phase 7's decode shape (8 rows over 544
-   slots, one shared length: 513 and 544);
+   qwen2-0.5b's heads, and the model paths' own shapes at the heads of
+   qwen2-0.5b (H 14, KV 2) and of zamba2-1.2b's shared block (H 32, KV
+   32): B3 at the 8 x 512 prefill and B2 at the decode steps over its
+   cache (8 rows over 544 slots, one shared length: 513 and 544);
 10. B2 and B3 times at qwen2-0.5b's heads in bf16 with CUDA events (B3 at
    8 x 512 tokens, phase 7's prefill shape, and 1 x 4096, causal; B2 at 64
    rows over 4096 slots), each first held to its plain version on the
@@ -53,7 +55,36 @@ fails:
    ``scaled_dot_product_attention`` with
    ``enable_gqa`` as a yardstick the port never calls (first checked to
    compute the same function) and its bound: the larger of its bytes over
-   3.35 TB/s and its operations over 989 TFLOP/s (bf16).
+   3.35 TB/s and its operations over 989 TFLOP/s (bf16);
+11. B4 (the Mamba-1 selective scan) against its plain version on the
+   card, float32, atol = rtol = 1e-4 on both y and h_last, on the cases of
+   tests/test_torch_mamba_scan_cuda.py: tests/test_kernels.py's three
+   shapes, a ragged Di, nonzero initial states, d_state 32 and 64, and
+   falcon-mamba-7b's width (8 x 8192 channels, d_state 16) at T = 1 from a
+   state, at T = 1 writing h_last over h0 (as a decode step writes its
+   cache entry) and at T = 512;
+12. the state-space path at full width: falcon-mamba-7b as published (64
+   Mamba-1 layers, d_model 4096, d_inner 8192, d_state 16, dt_rank 256,
+   vocab 65,024, untied, bf16; 7,272,665,088 parameters), run as phase 7
+   runs qwen2-0.5b; B4 launched at least 64 times in the prefill and
+   64 x 32 times in the 32 decode steps; the model is freed afterwards;
+13. zamba2-1.2b as published (38 Mamba-2 layers as 6 periods of
+   [shared attention, ssm x6] and a tail [shared attention, ssm x2],
+   d_model 2048, 32/32 heads, d_ff 8192, vocab 32,000, bf16), the same run;
+   B3 launched at least 7 times per prefill and B2 at least 7 times per
+   decode step (the shared block's 7 calls);
+14. token identity of the state-space path, float32, TF32 off, as phase 8:
+   falcon-mamba-7b at full width cut to 4 of its 64 layers (the full
+   depth in float32 is about 29 GB and too slow on the CPU), and
+   zamba2-1.2b at full width cut to 8 of its 38 layers (one period of
+   [shared attention, ssm x6] and the tail [shared attention, ssm x2], so
+   both stages, B3 and B2 run; the cut keeps the CPU's share short);
+15. B4 times at phase 12's shapes, the prefill (8 x 512 from zero) and
+   one decode step (8 x 1 from a state): each first held to its plain
+   version on the timed inputs (1e-4; that error is the entry's
+   ``max_abs_err``), then timed beside its plain version, with its bound
+   (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s); no one
+   PyTorch call computes the scan, so its ``library_ms`` is null.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -129,6 +160,7 @@ def serve(*extra: str) -> dict:
 
 
 def main() -> None:
+    t_start = time.perf_counter()
     if not (SRC / "repro_torch").is_dir():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              f"a checkout of the repository")
@@ -195,11 +227,36 @@ def main() -> None:
     for quantized, run in ((False, fp32_run), (True, int8_run)):
         entries.append(time_kernel(quantized, dev, run["launches"], worst))
 
-    # 7.-10. the model path, its kernels B2 and B3
-    launches = model_path(dev)
-    model_token_identity(dev)
+    # 7.-10. the model path of the attention-only archs, B3 and B2
+    from repro_torch.kernels.decode_attention import decode_attention_bhd
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.mamba_scan import mamba1_scan
+    n = layer_calls("qwen2-0.5b", "attn")
+    launches = model_path(dev, "qwen2-0.5b", {
+        "flash": (flash_attention_bhsd, n, 0),
+        "decode": (decode_attention_bhd, 0, n)})
+    model_token_identity(dev, "qwen2-0.5b")
     attention_vs_plain(dev)
     entries += time_attention(dev, launches)
+
+    # 11.-15. the state-space path, B4 (and B3/B2 in zamba2's shared block)
+    t_ssm = time.perf_counter()
+    scan_vs_plain(dev)
+    n = layer_calls("falcon-mamba-7b", "ssm")
+    ssm_launches = model_path(dev, "falcon-mamba-7b",
+                              {"scan": (mamba1_scan, n, n)})
+    n = layer_calls("zamba2-1.2b", "shared_attn")
+    model_path(dev, "zamba2-1.2b", {"flash": (flash_attention_bhsd, n, 0),
+                                    "decode": (decode_attention_bhd, 0, n)})
+    # 4 of 64 layers: the full depth in float32 is about 29 GB and too slow
+    # on the CPU; the widths stay as published
+    model_token_identity(dev, "falcon-mamba-7b", n_layers=4)
+    # 8 of 38 layers: one hybrid period and the tail, so both stages run
+    model_token_identity(dev, "zamba2-1.2b", n_layers=8)
+    entries += time_scan(dev, ssm_launches["scan"])
+    now = time.perf_counter()
+    log(f"phases 1-10 took {t_ssm - t_start:.1f} s, phases 11-15 "
+        f"{now - t_ssm:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -456,19 +513,19 @@ def _clone(tree):
             for k, v in tree.items()}
 
 
-def model_path(dev) -> dict:
-    """qwen2-0.5b bf16 at full width: prefill 8 x 512, 32 decode_steps,
-    the same 32 tokens through decode_multi.  Returns the B3 and B2 launch
-    counts of this run (set to 0 just before it, read just after)."""
+def model_path(dev, arch: str, kernels: dict) -> dict:
+    """``arch`` as published (bf16, full width): prefill 8 x 512, 32
+    decode_steps, the same 32 tokens through decode_multi.  ``kernels``
+    maps a name to (wrapper, launches wanted per prefill, per decode step).
+    Returns each kernel's launches over this run (every count set to 0
+    just before it, read just after)."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
-    from repro_torch.kernels.decode_attention import decode_attention_bhd
-    from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.models import model as M
 
-    cfg = get_config("qwen2-0.5b")
+    cfg = get_config(arch)
     B, S, N = 8, 512, 32
     t0 = time.perf_counter()
     model = M.Model(cfg, generator=torch.Generator(dev).manual_seed(0),
@@ -488,14 +545,14 @@ def model_path(dev) -> dict:
         f"warmed in {time.perf_counter() - t0:.1f} s")
 
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    flash_attention_bhsd.launches = 0
-    decode_attention_bhd.launches = 0
+    for wrapper, _, _ in kernels.values():
+        wrapper.launches = 0
     start.record()
     logits, cache = model.prefill(toks)
     end.record()
     torch.cuda.synchronize()
     prefill_ms = start.elapsed_time(end)
-    n_flash = flash_attention_bhsd.launches
+    in_prefill = {k: w.launches for k, (w, _, _) in kernels.items()}
     if not torch.isfinite(logits).all():
         fail("prefill logits are not finite")
     cache = M.grow_cache(cache, cfg, B, S + N)
@@ -517,8 +574,7 @@ def model_path(dev) -> dict:
     end.record()
     torch.cuda.synchronize()
     multi_ms = start.elapsed_time(end) / N
-    counts = {"flash": flash_attention_bhsd.launches,
-              "decode": decode_attention_bhd.launches}
+    counts = {k: w.launches for k, (w, _, _) in kernels.items()}
     busy = {
         "prefill": device_share(lambda: model.prefill(toks)),
         "decode_step x4": device_share(lambda: [
@@ -528,22 +584,25 @@ def model_path(dev) -> dict:
     if not torch.equal(fused, stepwise) or int(clen) != S + N:
         fail(f"decode_multi differs from stepwise decoding: "
              f"{fused.tolist()} vs {stepwise.tolist()}")
-    n_layers = cfg.n_layers
-    if n_flash < n_layers or counts["flash"] < n_layers:
-        fail(f"flash attention kernel launched {n_flash} times in prefill, "
-             f"want >= {n_layers}")
-    if counts["decode"] < n_layers * N:
-        fail(f"decode attention kernel launched {counts['decode']} times, "
-             f"want >= {n_layers * N}")
-    log(f"model path: prefill {B} x {S} tokens {prefill_ms:.3f} ms; decode "
-        f"{B} rows: decode_step {step_ms:.3f} ms/token, decode_multi "
+    for k, (_, per_prefill, per_step) in kernels.items():
+        if in_prefill[k] < per_prefill:
+            fail(f"{arch}: {k} kernel launched {in_prefill[k]} times in "
+                 f"prefill, want >= {per_prefill}")
+        if counts[k] - in_prefill[k] < per_step * N:
+            fail(f"{arch}: {k} kernel launched {counts[k] - in_prefill[k]} "
+                 f"times in {N} decode steps, want >= {per_step * N}")
+    log(f"model path {arch}: prefill {B} x {S} tokens {prefill_ms:.3f} ms; "
+        f"decode {B} rows: decode_step {step_ms:.3f} ms/token, decode_multi "
         f"{multi_ms:.3f} ms/token; streams equal over {B} x {N} tokens; "
-        f"launches flash {counts['flash']}, decode {counts['decode']}")
+        f"launches " + ", ".join(f"{k} {counts[k]} ({in_prefill[k]} in "
+                                 f"prefill)" for k in kernels))
     for what, (wall_ms, dev_ms, n_kernels, top) in busy.items():
         share = f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"
-        log(f"profile {what}: wall {wall_ms:.3f} ms (profiler on), device "
-            f"kernels {dev_ms:.3f} ms in {n_kernels} launches, busy share "
-            f"{share}; top: {top}")
+        log(f"profile {arch} {what}: wall {wall_ms:.3f} ms (profiler on), "
+            f"device kernels {dev_ms:.3f} ms in {n_kernels} launches, busy "
+            f"share {share}; top: {top}")
+    del model, cache, saved
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -571,11 +630,20 @@ def device_share(fn) -> tuple:
              for e in top])
 
 
+def layer_calls(arch: str, *kinds: str) -> int:
+    """How many layers of these kinds one pass through ``arch`` runs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_plan
+    return sum(stage.n_periods for stage in build_plan(get_config(arch))
+               for spec in stage.specs if spec.kind in kinds)
+
+
 # -- phase 8: token identity of the model path --------------------------------
 
-def model_token_identity(dev) -> None:
-    """qwen2-0.5b in float32 at full width, the same weights on the card
-    and on the CPU: one 64-token prompt, 16 greedy tokens."""
+def model_token_identity(dev, arch: str, **cut) -> None:
+    """``arch`` in float32 at full width (depth cut by ``cut``), the same
+    weights on the card and on the CPU: one 64-token prompt, 16 greedy
+    tokens."""
     import copy
 
     import numpy as np
@@ -584,7 +652,7 @@ def model_token_identity(dev) -> None:
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
 
-    cfg = get_config("qwen2-0.5b").scaled(dtype="float32")
+    cfg = get_config(arch).scaled(dtype="float32", **cut)
     S, N = 64, 16
     t0 = time.perf_counter()
     cpu = M.Model(cfg, generator=torch.Generator().manual_seed(0),
@@ -603,7 +671,8 @@ def model_token_identity(dev) -> None:
     if streams["cuda"] != streams["cpu"]:
         fail(f"model tokens differ between cuda and cpu: {streams['cuda']} "
              f"vs {streams['cpu']}")
-    log(f"model token identity (float32, full width): cuda == cpu over "
+    log(f"model token identity {arch} (float32, full width"
+        + (f", {cut}" if cut else "") + f"): cuda == cpu over "
         f"{len(streams['cpu'])} tokens ({time.perf_counter() - t0:.1f} s)")
     del card
     torch.cuda.empty_cache()
@@ -615,18 +684,6 @@ def _attention_cases():
     sys.path.insert(0, str(ROOT / "tests"))
     import test_torch_attention_cuda as cases
     return cases
-
-
-def model_path_decode(dev, dtype, valid: int) -> dict:
-    """B2's inputs as phase 7's decode steps give them: 8 rows over a
-    [8, 544, 2, 64] cache (512 prompt slots grown by 32), one ``valid``
-    length shared by every row (a broadcast [B] tensor, stride 0) and
-    linear slot positions."""
-    import torch
-    c = _attention_cases().model_decode(dev, dtype, B=8, Sc=544)
-    c["cache_len"] = torch.tensor([valid], dtype=torch.int32,
-                                  device=dev).expand(8)
-    return c
 
 
 def attention_vs_plain(dev) -> dict:
@@ -651,7 +708,12 @@ def attention_vs_plain(dev) -> dict:
                    for w in (None, 16)]
                 + [("decode", cases.model_decode(dev, dtype, window=w))
                    for w in (None, 16)]
-                + [("decode", model_path_decode(dev, dtype, n))
+                + [("flash", cases.model_flash(dev, dtype, B=8, S=512, H=H,
+                                               KV=KV))
+                   for H, KV in cases.MODEL_HEADS.values()]
+                + [("decode", cases.model_path_decode(dev, dtype, n, H=H,
+                                                      KV=KV))
+                   for H, KV in cases.MODEL_HEADS.values()
                    for n in (513, 544)])
         for kind, c in todo:
             if kind == "flash":
@@ -785,6 +847,113 @@ def time_attention(dev, launches: dict) -> list:
                 "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": library_ms})
+    return out
+
+
+# -- phase 11: B4 against its plain version -----------------------------------
+
+def _scan_cases():
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_mamba_scan_cuda as cases
+    return cases
+
+
+def _scan_err(got, want, what: str) -> float:
+    """Max abs error of (y, h_last) against the plain version's; fails
+    outside atol = rtol = 1e-4."""
+    import torch
+    err = 0.0
+    for g, w in zip(got, want):
+        err = max(err, (g - w).abs().max().item())
+        if not torch.allclose(g, w, atol=1e-4, rtol=1e-4):
+            fail(f"{what}: scan kernel disagrees with its plain version: max "
+                 f"abs err {err:.3g}")
+    return err
+
+
+def scan_vs_plain(dev) -> float:
+    """B4 on tests/test_torch_mamba_scan_cuda.py's cases (tests/
+    test_kernels.py's shapes, a ragged Di, nonzero h0, d_state 32 and 64)
+    and at falcon-mamba-7b's width at T = 1 (from a state, then writing
+    h_last over h0) and T = 512."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import (
+        mamba1_scan, mamba1_scan_reference)
+    cases = _scan_cases()
+    todo = [(cases.shape_id(s), cases.to_torch(cases.scan_case(*s), dev))
+            for s in cases.SHAPES]
+    todo += [(f"falcon-T{T}", cases.falcon_case(dev, T, with_h0=h0))
+             for T, h0 in ((1, True), (512, False))]
+    worst = 0.0
+    for name, c in todo:
+        got = cases.run(mamba1_scan, c)
+        torch.cuda.synchronize()
+        worst = max(worst, _scan_err(got, cases.run(mamba1_scan_reference, c),
+                                     name))
+    # a decode step's form: h_last written over h0
+    c = cases.falcon_case(dev, 1, with_h0=True, seed=2)
+    want = cases.run(mamba1_scan_reference, c)
+    h = c["h0"].clone()
+    got = mamba1_scan(c["x"], c["dt"], c["Bt"], c["Ct"], c["A"], h, h)
+    torch.cuda.synchronize()
+    if got[1] is not h:
+        fail("scan kernel did not write h_last where asked")
+    worst = max(worst, _scan_err(got, want, "falcon-T1-in-place"))
+    todo.append(("falcon-T1-in-place", c))
+    log(f"B4 kernel vs plain version over {len(todo)} calls (y and h_last): "
+        f"max abs err {worst:.3g} (atol = rtol = 1e-4)")
+    return worst
+
+
+# -- phase 15: B4 times -------------------------------------------------------
+
+def time_scan(dev, launches: int) -> list:
+    """B4 at phase 12's shapes: the prefill (8 x 512 from zero) and one
+    decode step (8 x 1 from a state), each first held to its plain version
+    on the timed inputs, then timed beside it, with its bound: the larger
+    of its bytes over 3.35 TB/s and its float32 operations over 67 TFLOP/s
+    (no one PyTorch call computes the scan, so no library time)."""
+    from repro_torch.kernels.mamba_scan import (
+        mamba1_scan, mamba1_scan_reference)
+    cases = _scan_cases()
+    out = []
+    for T, with_h0 in ((512, False), (1, True)):
+        c = cases.falcon_case(dev, T, with_h0=with_h0, seed=1)
+        B, _, Di = c["x"].shape
+        N = c["Bt"].shape[-1]
+        name = f"mamba_scan_f32_b{B}_t{T}" + ("_h0" if with_h0 else "")
+        err = _scan_err(cases.run(mamba1_scan, c),
+                        cases.run(mamba1_scan_reference, c), name)
+        ms, plain_ms = _time_pair(lambda: cases.run(mamba1_scan, c),
+                                  lambda: cases.run(mamba1_scan_reference, c))
+        # x, dt read and y written; B_t, C_t; A; h0 read and h_last written
+        nbytes = 4 * (3 * B * T * Di + 2 * B * T * N + Di * N
+                      + (2 if with_h0 else 1) * B * Di * N)
+        # per (b, t, d, n): dt*A, exp, *h, dtx*B, +, C*h, +; per (b, t, d):
+        # dt*x
+        flops = 7 * B * T * Di * N + B * T * Di
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        bound_ms = max(t_bytes, t_ops)
+        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        # the device's own time per call, apart from the wrapper's host
+        # work between back-to-back launches
+        wall_ms, dev_ms, n_kernels, _ = device_share(
+            lambda: [cases.run(mamba1_scan, c) for _ in range(20)])
+        log(f"{name}: Di={Di} N={N}: max abs err {err:.3g}, kernel {ms:.4f} "
+            f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}; {nbytes} B, {flops} flop), achieved "
+            f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
+            f"{B * T * Di * N / (ms * 1e-3) / 1e12:.3f} T exp/s; profiler: "
+            f"{n_kernels} kernels, {dev_ms / max(n_kernels, 1):.4f} ms of "
+            f"device time each, 20 calls in {wall_ms:.3f} ms wall")
+        out.append({"name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/mamba_scan.cu",
+                    "replaces": "src/repro/kernels/mamba_scan.py:48",
+                    "launches": launches, "max_abs_err": err, "ms": ms,
+                    "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": bound_by, "library_ms": None})
     return out
 
 

@@ -113,4 +113,6 @@ def load_library() -> ctypes.CDLL:
     lib.da_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                               *[i64] * 10, ci, ctypes.c_float, vp]
     lib.da_launch.restype = ci
+    lib.ms_launch.argtypes = [*[vp] * 8, ci, ci, ci, ci, vp]
+    lib.ms_launch.restype = ci
     return lib

@@ -12,6 +12,7 @@ from typing import Optional
 
 from repro_torch.kernels.decode_attention import decode_attention_bhd
 from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.mamba_scan import mamba1_scan
 
 
 def flash_attention(q, k, v, *, causal: bool = True,
@@ -27,8 +28,9 @@ def decode_attention(q, k_cache, v_cache, cache_len, positions, *,
                                 window=window)
 
 
-def mamba_scan(x, dt, Bt, Ct, A):
-    """The Mamba-1 selective scan (B4) is not ported yet."""
-    raise NotImplementedError(
-        "mamba_scan (B4, src/repro/kernels/mamba_scan.py) is not ported yet: "
-        "see ROADMAP.md, Queue 1 and Queue 2")
+def mamba_scan(x, dt, Bt, Ct, A, h0=None, h_out=None):
+    """The Mamba-1 selective scan (B4): see ``mamba1_scan``.  Unlike the JAX
+    package's ``mamba_scan``, it takes an initial state and returns
+    (y, h_last), which ``models.ssm.mamba1_mix`` carries through prefill
+    and decode; ``h_out`` is where h_last goes (it may be ``h0``)."""
+    return mamba1_scan(x, dt, Bt, Ct, A, h0, h_out)

@@ -4,9 +4,11 @@
 
 The port's twin of ``examples/quickstart.py``, through the public API
 only: configs registry -> ``tiny_config`` -> ``Model`` -> ``prefill`` ->
-grow the cache -> ``decode_step``, with the BPE tokenizer.  It runs on the
-card (``--device cuda``, the default, which raises without one) through
-the port's attention kernels, or on the CPU through their plain versions.
+grow the cache -> ``decode_step``, with the BPE tokenizer.  Any ported
+architecture: the attention-only ones, falcon-mamba-7b (Mamba-1) and
+zamba2-1.2b (Mamba-2 with a shared attention block).  It runs on the card
+(``--device cuda``, the default, which raises without one) through the
+port's kernels, or on the CPU through their plain versions.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
-"""The model stack for the attention-only architectures: the port of
-``src/repro/models/model.py``.
+"""The model stack for the attention and state-space architectures: the
+port of ``src/repro/models/model.py``.
 
 A model is a list of *stages*; a stage repeats ``n_periods`` identical
 *periods*; a period is a short static list of layer templates
@@ -9,25 +9,37 @@ periods per stage in place of the reference's stacked period axis:
 
   dense (granite/olmo/qwen2) and vlm (qwen2-vl):  1 stage, period = [attn]
   gemma3 (5 local : 1 global):                   1 stage, period = [local x5, global]
+  falcon-mamba:                                  1 stage, period = [ssm]
+  zamba2 (shared attn every 6):                  ``hybrid``: 6 periods of
+                                                 [shared_attn, ssm x6];
+                                                 ``hybrid_tail``: 1 period of
+                                                 [shared_attn, ssm x2]
 
-The ssm, hybrid, audio (whisper) and moe families are not ported yet:
-``build_plan`` raises ``NotImplementedError`` for them (ROADMAP.md).
+zamba2's shared attention block is one set of weights at the top level
+(``shared_block``), looked up by every period, with a K/V cache of its
+own per period.  The audio (whisper) and moe families are not ported
+yet: ``build_plan`` raises ``NotImplementedError`` for them (ROADMAP.md).
 
 Entry points: ``Model.forward``, ``Model.prefill``, ``Model.decode_step``,
 ``Model.decode_multi`` and ``cache_specs``, with the reference's shapes.
-The cache is ``{stage: {"layer{i}": {"k", "v"}}}`` with a leading period
-axis, ``[n_periods, B, Sc, KVs, Dh]``; window layers hold a ring of
-``Sc = window`` slots once the sequence is longer.  Unlike the reference,
-``decode_step`` writes the new token's K/V into the cache it is given, in
-place, and returns that cache: a functional update would copy the whole
-cache every token.  What all layers of a call share (the rotary cos/sin
+The cache is ``{stage: {"layer{i}": entry}}`` with a leading period axis:
+an attention entry is ``{"k", "v"}``, ``[n_periods, B, Sc, KVs, Dh]``
+(window layers hold a ring of ``Sc = window`` slots once the sequence is
+longer), an ssm entry ``{"conv": [n_periods, B, K-1, di]`` in the config
+dtype, ``"ssm": [n_periods, B, di, n]`` (Mamba-1) or ``[n_periods, B, nh,
+hd, n]`` (Mamba-2) in float32``}``.  Unlike the reference, ``decode_step``
+writes the new token's K/V and the new ssm states into the cache it is
+given, in place, and returns that cache: a functional update would copy
+the whole cache every token, and a cache that stays put can be captured
+in a CUDA graph later.  What all layers of a call share (the rotary cos/sin
 per layer template, a decode step's lengths, write slots and slot
 positions) is computed once per call, not once per layer.
 
-Attention runs through ``repro_torch.kernels.ops``: the CUDA kernels (B3
-at prefill, B2 at decode) for tensors on the card, their plain versions
-on the CPU.  Projections, MLPs and logits are ``torch`` matrix products,
-as the reference leaves them to XLA.  Weights are drawn from an explicit
+Attention and the Mamba-1 scan run through ``repro_torch.kernels.ops``:
+the CUDA kernels (B3 at prefill, B2 at decode, B4 in every Mamba-1 layer)
+for tensors on the card, their plain versions on the CPU.  Projections,
+MLPs, Mamba-2's SSD and logits are ``torch`` ops and matrix products, as
+the reference leaves them to XLA.  Weights are drawn from an explicit
 ``torch.Generator`` on an explicit device, by default the card (raising
 without one); ``repro_torch.models.convert`` carries the reference's
 weights across instead.
@@ -43,6 +55,7 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     Attention,
     HeadLayout,
@@ -83,12 +96,21 @@ class Stage:
 
 
 def build_plan(cfg: ModelConfig) -> List[Stage]:
-    """The reference's plan for the decoder-only attention families; the
-    families whose modules are not ported yet raise."""
-    if cfg.family in ("ssm", "hybrid") or cfg.ssm is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family needs models/ssm.py and the "
-            f"mamba scan kernel (B4), not ported yet (ROADMAP.md)")
+    """The reference's plan for the decoder-only attention, ssm and hybrid
+    families; the audio and moe families, whose modules are not ported
+    yet, raise."""
+    if cfg.family == "ssm":
+        return [Stage("ssm", (LayerSpec(kind="ssm"),), cfg.n_layers)]
+    if cfg.family == "hybrid":
+        period = cfg.hybrid_period or 6
+        full, tail = divmod(cfg.n_layers, period)
+        shared = LayerSpec(kind="shared_attn", rope_theta=cfg.rope_theta,
+                           mlp=cfg.mlp)
+        ssm = LayerSpec(kind="ssm")
+        stages = [Stage("hybrid", (shared,) + (ssm,) * period, full)]
+        if tail:
+            stages.append(Stage("hybrid_tail", (shared,) + (ssm,) * tail, 1))
+        return stages
     if cfg.encdec is not None:
         raise NotImplementedError(
             f"{cfg.name}: the encoder-decoder family needs cross-attention "
@@ -120,6 +142,13 @@ def build_plan(cfg: ModelConfig) -> List[Stage]:
                      rope_theta=cfg.rope_theta, mlp=cfg.mlp,
                      use_mrope=use_mrope)
     return [Stage(cfg.family, (spec,), cfg.n_layers)]
+
+
+def _layout(cfg: ModelConfig) -> Optional[HeadLayout]:
+    """The head layout, or None for an attention-free model."""
+    if cfg.n_heads == 0:
+        return None
+    return head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -194,6 +223,29 @@ class AttnLayer(nn.Module):
         return self._finish(x, o)
 
 
+class SsmLayer(nn.Module):
+    """norm -> Mamba block -> residual (the reference's ``_ssm_layer``);
+    parameter names follow its layer tree (``norm``, ``ssm``)."""
+
+    def __init__(self, cfg: ModelConfig, device, generator):
+        super().__init__()
+        dtype = cfg.param_dtype()
+        self.norm = Norm(cfg.norm, cfg.d_model, dtype, device)
+        self.ssm = ssm_mod.Mamba(ssm_mod.ssm_dims(cfg.ssm, cfg.d_model),
+                                 dtype, device, generator)
+
+    def full(self, x, rot, *, want_cache: bool):
+        """Prefill from scratch: (y, {conv, ssm} | None), the final states."""
+        y, state = self.ssm(self.norm(x))
+        return x + y, (state if want_cache else None)
+
+    def decode(self, x, rot, entry, step: "DecodeStep"):
+        """One token from the states in ``entry``, which it overwrites with
+        the new states, in place."""
+        y, _ = self.ssm(self.norm(x), entry, in_place=True)
+        return x + y
+
+
 class DecodeStep:
     """What every layer of one decode step shares, computed once per step
     rather than once per layer: the valid length after the write (int32,
@@ -251,7 +303,7 @@ class Model(nn.Module):
                              "torch.Generator: pass generator=")
         self.cfg = cfg
         self.plan = build_plan(cfg)
-        self.layout = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+        self.layout = _layout(cfg)
         dtype = cfg.param_dtype()
         self.embed = nn.Parameter(embed_init(cfg.padded_vocab, cfg.d_model,
                                              dtype, device, generator))
@@ -259,18 +311,35 @@ class Model(nn.Module):
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(embed_init(
                 cfg.padded_vocab, cfg.d_model, dtype, device, generator))
+        if cfg.family == "hybrid":
+            # one copy, looked up by every period (``_layer``)
+            self.shared_block = AttnLayer(self.plan[0].specs[0], cfg,
+                                          self.layout, device, generator)
+
+        def layer(spec):
+            if spec.kind == "ssm":
+                return SsmLayer(cfg, device, generator)
+            return AttnLayer(spec, cfg, self.layout, device, generator)
+
         self.stages = nn.ModuleDict({
             stage.name: nn.ModuleList(
                 nn.ModuleDict({
-                    f"layer{li}": AttnLayer(spec, cfg, self.layout, device,
-                                            generator)
-                    for li, spec in enumerate(stage.specs)})
+                    f"layer{li}": layer(spec)
+                    for li, spec in enumerate(stage.specs)
+                    if spec.kind != "shared_attn"})
                 for _ in range(stage.n_periods))
             for stage in self.plan})
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
+
+    def _layer(self, period, li: int, spec: LayerSpec) -> nn.Module:
+        """The module of template ``li`` in one period: the shared block
+        for ``shared_attn`` templates (the reference's ``_period_params``)."""
+        if spec.kind == "shared_attn":
+            return self.shared_block
+        return period[f"layer{li}"]
 
     def _logits(self, x):
         table = self.embed if self.cfg.tie_embeddings else self.lm_head
@@ -281,9 +350,12 @@ class Model(nn.Module):
         and shared by every layer of that template: {spec: (cos, sin) |
         None}.  ``positions`` [S] or [1, 1] are the tokens' absolute
         positions; M-RoPE templates read ``extras["mrope_positions"]``."""
-        dh = self.layout.d_head
         out = {}
         for spec in {s for stage in self.plan for s in stage.specs}:
+            if spec.kind == "ssm":
+                out[spec] = None
+                continue
+            dh = self.layout.d_head
             if spec.use_mrope:
                 out[spec] = mrope_cos_sin(extras["mrope_positions"], dh,
                                           spec.rope_theta,
@@ -306,13 +378,13 @@ class Model(nn.Module):
             entries = {f"layer{li}": [] for li in range(len(stage.specs))}
             for period in self.stages[stage.name]:
                 for li, spec in enumerate(stage.specs):
-                    x, e = period[f"layer{li}"].full(x, rot[spec],
-                                                     want_cache=want_cache)
+                    x, e = self._layer(period, li, spec).full(
+                        x, rot[spec], want_cache=want_cache)
                     if want_cache:
                         entries[f"layer{li}"].append(e)
             if want_cache:
                 cache[stage.name] = {
-                    key: {n: torch.stack([e[n] for e in es]) for n in ("k", "v")}
+                    key: {n: torch.stack([e[n] for e in es]) for n in es[0]}
                     for key, es in entries.items()}
         x = self.final_norm(x)
         return x, (cache if want_cache else None)
@@ -330,8 +402,8 @@ class Model(nn.Module):
     @torch.no_grad()
     def decode_step(self, tokens, cache, cache_len, extras=None):
         """One decode step: tokens [B, 1] against a cache with ``cache_len``
-        valid entries (int or 0-d tensor).  Writes the new K/V into
-        ``cache`` in place; returns (logits [B, 1, Vp], cache)."""
+        valid entries (int or 0-d tensor).  Writes the new K/V and ssm
+        states into ``cache`` in place; returns (logits [B, 1, Vp], cache)."""
         step = DecodeStep(cache_len, tokens.shape[0], self.device)
         rot = self._rotations(step.clen.reshape(1, 1), extras or {})
         x = F.embedding(tokens, self.embed)
@@ -340,7 +412,8 @@ class Model(nn.Module):
                 for li, spec in enumerate(stage.specs):
                     key = f"layer{li}"
                     entry = {n: t[p] for n, t in cache[stage.name][key].items()}
-                    x = period[key].decode(x, rot[spec], entry, step)
+                    x = self._layer(period, li, spec).decode(x, rot[spec],
+                                                             entry, step)
         x = self.final_norm(x)
         return self._logits(x), cache
 
@@ -375,27 +448,42 @@ class Model(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _entry_specs(spec: LayerSpec, cfg: ModelConfig, layout, batch: int,
+                 seq: int):
+    """One layer's cache entry as ``meta`` tensors, without the period
+    axis."""
+    dtype = cfg.param_dtype()
+    if spec.kind == "ssm":
+        dims = ssm_mod.ssm_dims(cfg.ssm, cfg.d_model)
+        return ssm_mod.ssm_state_specs(dims, batch, dtype)
+    sc = min(seq, spec.window) if spec.window is not None else seq
+    shape = (batch, sc, layout.kv_store, layout.d_head)
+    return {n: torch.empty(shape, dtype=dtype, device="meta")
+            for n in ("k", "v")}
+
+
 def cache_specs(cfg: ModelConfig, batch: int, seq: int):
     """The cache tree of prefill/decode as ``meta`` tensors (shape and
-    dtype): window layers hold ``min(seq, window)`` slots."""
-    layout = head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    dtype): window layers hold ``min(seq, window)`` slots, ssm layers
+    their fixed-size states."""
+    layout = _layout(cfg)
     out = {}
     for stage in build_plan(cfg):
         st = {}
         for li, spec in enumerate(stage.specs):
-            sc = min(seq, spec.window) if spec.window is not None else seq
-            shape = (stage.n_periods, batch, sc, layout.kv_store,
-                     layout.d_head)
-            st[f"layer{li}"] = {n: torch.empty(shape, dtype=cfg.param_dtype(),
-                                               device="meta")
-                                for n in ("k", "v")}
+            st[f"layer{li}"] = {
+                n: torch.empty((stage.n_periods, *t.shape), dtype=t.dtype,
+                               device="meta")
+                for n, t in _entry_specs(spec, cfg, layout, batch,
+                                         seq).items()}
         out[stage.name] = st
     return out
 
 
 def grow_cache(cache, cfg: ModelConfig, batch: int, seq: int):
     """A prefill cache zero-padded to ``cache_specs(cfg, batch, seq)``, as
-    the reference's callers pad theirs before decoding."""
+    the reference's callers pad theirs before decoding (ssm states keep
+    their size and are copied)."""
     out = {}
     for stage, layers in cache_specs(cfg, batch, seq).items():
         out[stage] = {}

@@ -118,11 +118,6 @@ def test_cpu_wrappers_count_no_launch():
             decode_attention_bhd.launches) == before
 
 
-def test_mamba_scan_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.mamba_scan(None, None, None, None, None)
-
-
 def test_wrappers_raise_on_other_devices():
     q = torch.zeros(2, 16, 64, device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -132,6 +127,10 @@ def test_wrappers_raise_on_other_devices():
                              torch.zeros(2, dtype=torch.int32, device="meta"),
                              torch.zeros(2, 16, dtype=torch.int32,
                                          device="meta"))
+    x = torch.zeros(1, 4, 16, device="meta")
+    bc = torch.zeros(1, 4, 8, device="meta")
+    with pytest.raises(ValueError, match="no kernel"):      # B4, via the seam
+        ops.mamba_scan(x, x, bc, bc, torch.zeros(16, 8, device="meta"))
 
 
 @pytest.mark.parametrize("tp", (1, 2, 4, 16))

@@ -13,7 +13,9 @@ case), head dims 16, 32 and 256, a GQA group of 48 (granite-20b's MQA),
 ragged lengths that are no multiple of a tile, a decode row with no valid
 slot, and the model's own layouts at qwen2-0.5b's heads (H 14, KV 2,
 D 64): ``[B, S, H, D]`` activations and a ``[B, S, KV, D]`` cache read
-through transposed views.  float32 and bfloat16, atol = rtol = 2e-5 and
+through transposed views, also at the model paths' own shapes (a prefill
+of 8 x 512 tokens and the decode steps over its 544-slot cache) at the
+heads of qwen2-0.5b and of zamba2-1.2b's shared block (H 32, KV 32).  float32 and bfloat16, atol = rtol = 2e-5 and
 2e-2 (tests/test_kernels.py's tolerances).  The builders below also feed
 tests/test_torch_attention.py (the plain versions against the JAX package
 on the CPU) and ``chip_smoke.py``.
@@ -131,6 +133,22 @@ def model_decode(device, dtype, *, B=3, Sc=130, H=14, KV=2, D=64,
                 cache_len=lens, positions=pos, window=window)
 
 
+def model_path_decode(device, dtype, valid: int, *, H=14, KV=2) -> dict:
+    """B2's inputs as a model path's decode steps give them: 8 rows over a
+    [8, 544, KV, 64] cache (512 prompt slots grown by 32), one ``valid``
+    length shared by every row (a broadcast [B] tensor, stride 0) and
+    linear slot positions."""
+    c = model_decode(device, dtype, B=8, Sc=544, H=H, KV=KV)
+    c["cache_len"] = torch.tensor([valid], dtype=torch.int32,
+                                  device=device).expand(8)
+    return c
+
+
+# the heads of the model paths chip_smoke.py drives: qwen2-0.5b's
+# attention layers and zamba2-1.2b's shared block
+MODEL_HEADS = {"qwen2-0.5b": (14, 2), "zamba2-1.2b": (32, 32)}
+
+
 def run_flash(fn, c):
     return fn(c["q"], c["k"], c["v"], causal=c["causal"], window=c["window"])
 
@@ -191,6 +209,25 @@ def test_kernels_read_the_model_layouts(cuda_device, dtype, window):
     got = run_decode(decode_attention_bhd, c)
     torch.cuda.synchronize()
     _check(got, run_decode(decode_attention_reference, c), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("arch", sorted(MODEL_HEADS))
+def test_kernels_at_the_model_path_shapes(cuda_device, dtype, arch):
+    """B3 at the prefill of 8 x 512 tokens and B2 at the decode steps that
+    follow it (8 rows over 544 slots, lengths 513 and 544), at the heads
+    of each model path."""
+    H, KV = MODEL_HEADS[arch]
+    c = model_flash(cuda_device, DTYPES[dtype], B=8, S=512, H=H, KV=KV)
+    got = run_flash(flash_attention_bhsd, c)
+    torch.cuda.synchronize()
+    _check(got, run_flash(flash_attention_reference, c), dtype)
+    for valid in (513, 544):
+        c = model_path_decode(cuda_device, DTYPES[dtype], valid, H=H, KV=KV)
+        got = run_decode(decode_attention_bhd, c)
+        torch.cuda.synchronize()
+        _check(got, run_decode(decode_attention_reference, c), dtype)
 
 
 @pytest.mark.cuda

@@ -1,7 +1,9 @@
 """The port's model path against the JAX package's, on the CPU.
 
-For each attention-only architecture (qwen2-0.5b, olmo-1b, granite-20b,
-gemma3-12b, qwen2-vl-7b) at the conftest ``tiny`` size in float32, the
+For each ported architecture (the attention-only qwen2-0.5b, olmo-1b,
+granite-20b, gemma3-12b and qwen2-vl-7b; the Mamba-1 falcon-mamba-7b; the
+hybrid zamba2-1.2b, Mamba-2 layers around one shared attention block) at
+the conftest ``tiny`` size in float32, the
 JAX package's ``init_params`` tree is perturbed in numpy (QKV biases and
 norm scales away from their zero/one initial values, so those paths
 compute something) and carried into the port with
@@ -11,9 +13,13 @@ from the grown cache with the same fed tokens (past gemma3's window of 8:
 its local layers decode on a ring), the same steps from the JAX package's
 own cache carried across with ``cache_from_reference``, and greedy
 ``decode_multi`` tokens.
-Tolerance atol = rtol = 1e-4 (float32 throughout, sums in another order);
-greedy tokens must be identical.  On the CPU the port's attention runs the
-kernels' plain versions, and the JAX package its jnp path.
+Every cache leaf is compared too: K/V and the ssm layers' conv and scan
+states.  Tolerance atol = rtol = 1e-4 (float32 throughout, sums in another
+order; the Mamba-1 scan runs sequentially where the reference runs a
+chunked associative scan, and the tiny falcon-mamba and zamba2 logits and
+states still agree within about 6e-6); greedy tokens must be identical.
+On the CPU the port's attention and scan run the kernels' plain versions,
+and the JAX package its jnp path.
 """
 from __future__ import annotations
 
@@ -32,7 +38,8 @@ from repro_torch.models.convert import cache_from_reference, params_from_referen
 
 from conftest import tiny
 
-ARCHS = ("qwen2-0.5b", "olmo-1b", "granite-20b", "gemma3-12b", "qwen2-vl-7b")
+ARCHS = ("qwen2-0.5b", "olmo-1b", "granite-20b", "gemma3-12b", "qwen2-vl-7b",
+         "falcon-mamba-7b", "zamba2-1.2b")
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, N_DEC = 2, 12, 4
 
@@ -241,8 +248,7 @@ def test_cache_specs_match_prefill(both):
     assert specs == got
 
 
-@pytest.mark.parametrize("name", ["falcon-mamba-7b", "zamba2-1.2b",
-                                  "whisper-small", "granite-moe-3b-a800m",
+@pytest.mark.parametrize("name", ["whisper-small", "granite-moe-3b-a800m",
                                   "qwen2-moe-a2.7b"])
 def test_unported_families_raise(name):
     from repro_torch.configs import get_config
@@ -296,6 +302,46 @@ def test_quickstart_runs_on_the_cpu():
         env=dict(os.environ, PYTHONPATH=str(root / "src")))
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert "generated ids:" in proc.stdout and proc.stdout.endswith("ok\n")
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_quickstart_runs_the_ssm_archs_on_the_cpu(arch):
+    from repro_torch.launch import quickstart
+    import contextlib
+    import io
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        quickstart.main(["--device", "cpu", "--arch", arch,
+                         "--new-tokens", "3"])
+    text = out.getvalue()
+    assert f"arch={arch}" in text and text.endswith("ok\n")
+
+
+def test_convert_carries_the_ssm_and_shared_leaves():
+    """In bfloat16, ``params_from_reference`` fills zamba2's top-level
+    ``shared_block``, every Mamba-2 leaf, and the float32 leaves ``D``,
+    ``dt_bias`` and ``A_log`` bit for bit."""
+    jcfg = tiny("zamba2-1.2b").scaled(dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(0),
+                                                   jcfg))
+    model = params_from_reference(tree, port_config(jcfg), "cpu")
+    got = dict(model.named_parameters())
+    assert any(k.startswith("shared_block.attn.") for k in got)
+    want = {}
+    for key, val in leaves(tree):
+        stage, _, rest = key.partition(".")
+        if stage in ("hybrid", "hybrid_tail"):
+            for p in range(val.shape[0]):
+                want[f"stages.{stage}.{p}.{rest}"] = val[p]
+        else:
+            want[key] = val
+    assert got.keys() == want.keys()
+    for key, val in want.items():
+        t = got[key].detach()
+        assert str(t.dtype).split(".")[-1] == str(val.dtype), key
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      val.astype(np.float32), err_msg=key)
+    assert got["stages.hybrid.0.layer1.ssm.A_log"].dtype == torch.float32
 
 
 def test_quickstart_without_a_card_raises(monkeypatch):
