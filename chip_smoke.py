@@ -32,7 +32,8 @@ fails:
    tokens, 32 ``decode_step``s, then the same 32 tokens through
    ``decode_multi`` from the same cache: the streams must be equal, the
    logits finite, and the flash (B3) and decode (B2) attention kernels
-   launched at least 24 and 24 x 32 times; prefill and per-token decode
+   launched at least 24 and 24 x 32 times, B3's 24 prefill launches on
+   its tensor-core (``wgmma``) route; prefill and per-token decode
    times with CUDA events, then the device's busy share of a prefill and
    of four decode steps from ``torch.profiler`` (kernel time over wall
    time, the profiler on);
@@ -40,22 +41,35 @@ fails:
    the same weights on the card and on the CPU (plain versions there),
    one 64-token prompt and 16 greedy tokens must agree (TF32 off);
 9. B2 and B3 against their plain versions on the card, float32 and
-   bfloat16 (atol = rtol = 2e-5 and 2e-2), on the cases of
+   bfloat16 (tests/test_torch_attention_cuda.py's ``KERNEL_TOLS``: atol
+   = rtol = 2e-5; rtol = 2e-2 with atol = 8e-3 for B3 and 2e-3 for B2), on
+   the cases of
    tests/test_torch_attention_cuda.py: tests/test_kernels.py's edge cases,
    head dims 16/32/256, a GQA group of 48, the model's layouts at
    qwen2-0.5b's heads, and the model paths' own shapes at the heads of
    qwen2-0.5b (H 14, KV 2) and of zamba2-1.2b's shared block (H 32, KV
    32): B3 at the 8 x 512 prefill and B2 at the decode steps over its
-   cache (8 rows over 544 slots, one shared length: 513 and 544);
-10. B2 and B3 times at qwen2-0.5b's heads in bf16 with CUDA events (B3 at
-   8 x 512 tokens, phase 7's prefill shape, and 1 x 4096, causal; B2 at 64
-   rows over 4096 slots), each first held to its plain version on the
-   timed inputs (atol = rtol = 2e-2; that error is the entry's
-   ``max_abs_err``), then timed beside its plain version,
-   ``scaled_dot_product_attention`` with
-   ``enable_gqa`` as a yardstick the port never calls (first checked to
-   compute the same function) and its bound: the larger of its bytes over
-   3.35 TB/s and its operations over 989 TFLOP/s (bf16);
+   cache (8 rows over 544 slots, one shared length: 513 and 544); then
+   the card-only cases of the new designs: B3's tensor-core route (bf16,
+   D 64/128/256, S 1 to 512, causal, bidirectional and window 16, GQA
+   groups of 1, 7 and 48) and B2's split over the cache (split counts from
+   1 to one per tile, a row with no kept slot, a window and a ring whose
+   kept slots lie in one split), float32 and bfloat16; the log gives
+   the worst error and the worst excess of an error over rtol times the
+   plain value (the atol that case needed);
+10. B2 and B3 times in bf16 with CUDA events: B3 at qwen2-0.5b's heads at
+   8 x 512 tokens (phase 7's prefill shape) and 1 x 4096, causal, and at
+   8 x 512 with zamba2-1.2b's shared-block heads (32/32, D 64) and with
+   olmo-1b's (16/16, D 128); B2 at qwen2-0.5b's heads at 64 rows over 4096
+   slots and at phase 7's decode shape, 8 rows over 544 slots; each first
+   held to its plain version on the timed inputs (bf16 ``KERNEL_TOLS``;
+   that error is the entry's ``max_abs_err``), then timed beside its plain
+   version, ``scaled_dot_product_attention`` with ``enable_gqa`` as a
+   yardstick the port never calls (first checked to compute the same
+   function) and its bound: the larger of its bytes over 3.35 TB/s and
+   its operations over 989 TFLOP/s (bf16); the log adds the kernel's and
+   SDPA's device time per call from ``torch.profiler``, which leaves out
+   the host's work between back-to-back launches;
 11. B4 (the Mamba-1 selective scan) against its plain version on the
    card, float32, atol = rtol = 1e-4 on both y and h_last, on the cases of
    tests/test_torch_mamba_scan_cuda.py: tests/test_kernels.py's three
@@ -71,8 +85,8 @@ fails:
 13. zamba2-1.2b as published (38 Mamba-2 layers as 6 periods of
    [shared attention, ssm x6] and a tail [shared attention, ssm x2],
    d_model 2048, 32/32 heads, d_ff 8192, vocab 32,000, bf16), the same run;
-   B3 launched at least 7 times per prefill and B2 at least 7 times per
-   decode step (the shared block's 7 calls);
+   B3 launched at least 7 times per prefill, all on its ``wgmma`` route,
+   and B2 at least 7 times per decode step (the shared block's 7 calls);
 14. token identity of the state-space path, float32, TF32 off, as phase 8:
    falcon-mamba-7b at full width cut to 4 of its 64 layers (the full
    depth in float32 is about 29 GB and too slow on the CPU), and
@@ -234,7 +248,7 @@ def main() -> None:
     n = layer_calls("qwen2-0.5b", "attn")
     launches = model_path(dev, "qwen2-0.5b", {
         "flash": (flash_attention_bhsd, n, 0),
-        "decode": (decode_attention_bhd, 0, n)})
+        "decode": (decode_attention_bhd, 0, n)}, routes={"wgmma": n})
     model_token_identity(dev, "qwen2-0.5b")
     attention_vs_plain(dev)
     entries += time_attention(dev, launches)
@@ -247,7 +261,8 @@ def main() -> None:
                               {"scan": (mamba1_scan, n, n)})
     n = layer_calls("zamba2-1.2b", "shared_attn")
     model_path(dev, "zamba2-1.2b", {"flash": (flash_attention_bhsd, n, 0),
-                                    "decode": (decode_attention_bhd, 0, n)})
+                                    "decode": (decode_attention_bhd, 0, n)},
+               routes={"wgmma": n})
     # 4 of 64 layers: the full depth in float32 is about 29 GB and too slow
     # on the CPU; the widths stay as published
     model_token_identity(dev, "falcon-mamba-7b", n_layers=4)
@@ -513,12 +528,14 @@ def _clone(tree):
             for k, v in tree.items()}
 
 
-def model_path(dev, arch: str, kernels: dict) -> dict:
+def model_path(dev, arch: str, kernels: dict, routes=None) -> dict:
     """``arch`` as published (bf16, full width): prefill 8 x 512, 32
     decode_steps, the same 32 tokens through decode_multi.  ``kernels``
-    maps a name to (wrapper, launches wanted per prefill, per decode step).
-    Returns each kernel's launches over this run (every count set to 0
-    just before it, read just after)."""
+    maps a name to (wrapper, launches wanted per prefill, per decode step);
+    ``routes`` maps a route of B3 to the launches wanted on it per
+    prefill.  Returns each kernel's launches over this run (every count set
+    to 0 just before it, read just after)."""
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
     import numpy as np
     import torch
 
@@ -547,12 +564,20 @@ def model_path(dev, arch: str, kernels: dict) -> dict:
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     for wrapper, _, _ in kernels.values():
         wrapper.launches = 0
+    by_route = flash_attention_bhsd.launches_by_route
+    for r in by_route:
+        by_route[r] = 0
     start.record()
     logits, cache = model.prefill(toks)
     end.record()
     torch.cuda.synchronize()
     prefill_ms = start.elapsed_time(end)
     in_prefill = {k: w.launches for k, (w, _, _) in kernels.items()}
+    routes_in_prefill = dict(by_route)
+    for r, want in (routes or {}).items():
+        if routes_in_prefill[r] < want:
+            fail(f"{arch}: flash kernel launched {routes_in_prefill[r]} "
+                 f"times on its {r} route in prefill, want >= {want}")
     if not torch.isfinite(logits).all():
         fail("prefill logits are not finite")
     cache = M.grow_cache(cache, cfg, B, S + N)
@@ -595,7 +620,8 @@ def model_path(dev, arch: str, kernels: dict) -> dict:
         f"decode {B} rows: decode_step {step_ms:.3f} ms/token, decode_multi "
         f"{multi_ms:.3f} ms/token; streams equal over {B} x {N} tokens; "
         f"launches " + ", ".join(f"{k} {counts[k]} ({in_prefill[k]} in "
-                                 f"prefill)" for k in kernels))
+                                 f"prefill)" for k in kernels)
+        + f"; flash routes in prefill {routes_in_prefill}")
     for what, (wall_ms, dev_ms, n_kernels, top) in busy.items():
         share = f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"
         log(f"profile {arch} {what}: wall {wall_ms:.3f} ms (profiler on), "
@@ -688,18 +714,18 @@ def _attention_cases():
 
 def attention_vs_plain(dev) -> dict:
     """Worst abs error per (kernel, dtype) over the cases; fails outside
-    atol = rtol = 2e-5 (float32) / 2e-2 (bfloat16)."""
+    ``KERNEL_TOLS`` (float32 atol = rtol = 2e-5; bfloat16 rtol = 2e-2 with
+    atol = 8e-3 for B3 and 2e-3 for B2)."""
     import torch
 
     from repro_torch.kernels.decode_attention import (
-        decode_attention_bhd, decode_attention_reference)
+        decode_attention_reference)
     from repro_torch.kernels.flash_attention import (
         flash_attention_bhsd, flash_attention_reference)
     cases = _attention_cases()
-    worst = {}
+    worst, excess = {}, {}
     n = 0
     for dname, dtype in cases.DTYPES.items():
-        tol = cases.TOLS[dname]
         todo = ([("flash", cases.to_torch(c, dev, dtype))
                  for _, c in cases.flash_cases()]
                 + [("decode", cases.to_torch(c, dev, dtype))
@@ -714,28 +740,41 @@ def attention_vs_plain(dev) -> dict:
                 + [("decode", cases.model_path_decode(dev, dtype, n, H=H,
                                                       KV=KV))
                    for H, KV in cases.MODEL_HEADS.values()
-                   for n in (513, 544)])
+                   for n in (513, 544)]
+                + [("decode", dict(cases.to_torch(c, dev, dtype),
+                                   n_splits=n))
+                   for _, c, n in cases.split_decode_cases()])
+        if dname == "bfloat16":
+            todo += [("flash", cases.wgmma_flash(dev, **p))
+                     for _, p in cases.wgmma_flash_cases()]
         for kind, c in todo:
             if kind == "flash":
                 got = cases.run_flash(flash_attention_bhsd, c)
                 torch.cuda.synchronize()
                 want = cases.run_flash(flash_attention_reference, c)
             else:
-                got = cases.run_decode(decode_attention_bhd, c)
+                got = cases.run_decode_splits(c, c.get("n_splits"))
                 torch.cuda.synchronize()
                 want = cases.run_decode(decode_attention_reference, c)
-            err = (got.float() - want.float()).abs().max().item()
+            tol = cases.KERNEL_TOLS[kind][dname]
+            diff = (got.float() - want.float()).abs()
+            err = diff.max().item()
+            over = (diff - tol["rtol"] * want.float().abs()).max().item()
             worst[(kind, dname)] = max(worst.get((kind, dname), 0.0), err)
+            excess[(kind, dname)] = max(excess.get((kind, dname), -1.0), over)
             n += 1
-            if not torch.allclose(got.float(), want.float(), atol=tol,
-                                  rtol=tol):
+            if not torch.allclose(got.float(), want.float(), **tol):
                 fail(f"{kind} attention kernel disagrees with its plain "
                      f"version ({dname}, q {tuple(c['q'].shape)}, k "
                      f"{tuple(c['k'].shape)}, window {c['window']}): max "
-                     f"abs err {err:.3g}")
+                     f"abs err {err:.3g}, max of |err| - rtol |plain| "
+                     f"{over:.3g}")
     log(f"B2/B3 kernel vs plain version over {n} calls: max abs err "
         + ", ".join(f"{k} {d} {e:.3g}" for (k, d), e in sorted(worst.items()))
-        + " (atol = rtol = 2e-5 fp32, 2e-2 bf16)")
+        + "; max of |err| - rtol |plain| "
+        + ", ".join(f"{k} {d} {e:.3g}" for (k, d), e in sorted(excess.items()))
+        + " (fp32 atol = rtol = 2e-5; bf16 rtol = 2e-2, atol = 8e-3 flash "
+        "and 2e-3 decode)")
     return worst
 
 
@@ -755,69 +794,123 @@ def _time_pair(kernel, plain) -> tuple:
     return min(ms, cuda_ms(kernel)), plain_ms
 
 
-def _held_to_plain(got, want, what: str) -> float:
+# SDPA, a yardstick, is first held to the plain version at this limit: its
+# own bf16 rounding met it at every timed shape on the H100 (PERF.md)
+YARDSTICK_TOL = dict(atol=4e-3, rtol=2e-2)
+
+
+def _held_to_plain(got, want, what: str, kind: str) -> float:
     """Max abs error of a kernel's output against its plain version on
-    the same inputs; fails outside atol = rtol = 2e-2 (bfloat16)."""
+    the same inputs; fails outside the kernel's bfloat16 ``KERNEL_TOLS``."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
-    if not torch.allclose(got.float(), want.float(), atol=2e-2, rtol=2e-2):
+    if not torch.allclose(got.float(), want.float(),
+                          **_attention_cases().KERNEL_TOLS[kind]["bfloat16"]):
         fail(f"{what}: kernel disagrees with its plain version at the timed "
              f"shape: max abs err {err:.3g}")
     return err
 
 
+def _device_ms_per_call(fn, calls: int = 20) -> str:
+    """Device time per call of ``fn`` from ``torch.profiler`` (device
+    activity only), the host's work between launches left out (which
+    back-to-back CUDA-event timing includes): for each kernel name, its
+    mean time per recorded launch times its launches per call (at least
+    one; the profiler can drop records), summed; "not measured" when it
+    recorded no kernel."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and e.count]
+    if not kernels:
+        return "not measured"
+    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / calls))
+             for e in kernels)
+    return f"{us / 1e3:.4f} ms"
+
+
 def time_attention(dev, launches: dict) -> list:
+    """Phase 10: B3 at 8 x 512 and 1 x 4096 with qwen2-0.5b's heads and at
+    8 x 512 with zamba2-1.2b's and olmo-1b's; B2 at 64 rows x 4096 slots and
+    at phase 7's 8 rows x 544 slots, qwen2-0.5b's heads; bf16."""
+    out = [time_flash(dev, launches, B, S, H, KV, D)
+           for B, S, H, KV, D in ((8, 512, 14, 2, 64), (1, 4096, 14, 2, 64),
+                                  (8, 512, 32, 32, 64),
+                                  (8, 512, 16, 16, 128))]
+    out += [time_decode(dev, launches, B, Sc) for B, Sc in ((64, 4096),
+                                                            (8, 544))]
+    return out
+
+
+def time_flash(dev, launches: dict, B, S, H, KV, D) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bhsd, flash_attention_reference, route)
+    cases = _attention_cases()
+    c = cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H, KV=KV, D=D)
+    q, k, v = c["q"], c["k"], c["v"]
+    got = cases.run_flash(flash_attention_bhsd, c)
+    name = f"flash_attention_bf16_b{B}_s{S}" + (
+        "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}")
+    want = cases.run_flash(flash_attention_reference, c)
+    err = _held_to_plain(got, want, name, "flash")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+                                              enable_gqa=True)
+    if not torch.allclose(sdpa().float(), want.float(),
+                          **YARDSTICK_TOL):
+        fail("SDPA yardstick does not compute flash attention's function")
+    ms, plain_ms = _time_pair(
+        lambda: cases.run_flash(flash_attention_bhsd, c),
+        lambda: cases.run_flash(flash_attention_reference, c))
+    library_ms = cuda_ms(sdpa)
+    nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)  # q, o, k, v
+    flops = 4 * D * H * B * S * (S + 1) // 2                # kept pairs
+    bound_ms, bound_by = _bound(nbytes, flops)
+    which = route(torch.bfloat16, D)
+    dev_ms = _device_ms_per_call(
+        lambda: cases.run_flash(flash_attention_bhsd, c))
+    log(f"{name}: H={H} KV={KV} D={D} causal, {which} route: max abs err "
+        f"{err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} "
+        f"B, {flops} flop), achieved {flops / (ms * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s; device time per call (profiler): kernel {dev_ms}, SDPA "
+        f"{_device_ms_per_call(sdpa)}")
+    source = ("flash_attention_wgmma.cu" if which == "wgmma"
+              else "flash_attention.cu")
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": launches["flash"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def time_decode(dev, launches: dict, B, Sc) -> dict:
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.decode_attention import (
-        decode_attention_bhd, decode_attention_reference)
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_bhsd, flash_attention_reference)
+        ROW_GROUP, choose_splits, decode_attention_bhd,
+        decode_attention_reference, split_ranges, tile_slots)
     cases = _attention_cases()
-    bf16 = torch.bfloat16
     H, KV, D = 14, 2, 64
-    out = []
-    for B, S in ((8, 512), (1, 4096)):
-        c = cases.model_flash(dev, bf16, B=B, S=S, H=H, KV=KV, D=D)
-        q, k, v = c["q"], c["k"], c["v"]
-        got = cases.run_flash(flash_attention_bhsd, c)
-        name = f"flash_attention_bf16_b{B}_s{S}"
-        err = _held_to_plain(got, cases.run_flash(flash_attention_reference,
-                                                  c), name)
-
-        def sdpa():
-            return F.scaled_dot_product_attention(q, k, v, is_causal=True,
-                                                  enable_gqa=True)
-        if not torch.allclose(sdpa().float(), got.float(), atol=2e-2,
-                              rtol=2e-2):
-            fail("SDPA yardstick does not compute flash attention's function")
-        ms, plain_ms = _time_pair(
-            lambda: cases.run_flash(flash_attention_bhsd, c),
-            lambda: cases.run_flash(flash_attention_reference, c))
-        library_ms = cuda_ms(sdpa)
-        nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)  # q, o, k, v
-        flops = 4 * D * H * B * S * (S + 1) // 2                # kept pairs
-        bound_ms, bound_by = _bound(nbytes, flops)
-        log(f"{name}: H={H} KV={KV} D={D} causal: max abs err {err:.3g}, "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound "
-            f"{bound_ms:.4f} ms ({bound_by}; {nbytes} B, {flops} flop), "
-            f"achieved {flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        out.append({"name": name, "route": "cuda",
-                    "source": "src/repro_torch/csrc/flash_attention.cu",
-                    "replaces": "src/repro/kernels/flash_attention.py:77",
-                    "launches": launches["flash"],
-                    "max_abs_err": err, "ms": ms,
-                    "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": bound_by, "library_ms": library_ms})
-
-    B, Sc = 64, 4096
-    c = cases.model_decode(dev, bf16, B=B, Sc=Sc, H=H, KV=KV, D=D)
+    c = cases.model_decode(dev, torch.bfloat16, B=B, Sc=Sc, H=H, KV=KV, D=D)
     c["cache_len"] = torch.full((B,), Sc, dtype=torch.int32, device=dev)
     got = cases.run_decode(decode_attention_bhd, c)
     name = f"decode_attention_bf16_b{B}_s{Sc}"
-    err = _held_to_plain(got, cases.run_decode(decode_attention_reference, c),
-                         name)
+    want = cases.run_decode(decode_attention_reference, c)
+    err = _held_to_plain(got, want, name, "decode")
     q4 = c["q"][:, :, None]                                 # [B, H, 1, D]
     mask = ((c["positions"] >= 0) & (c["positions"] < c["cache_len"][:, None])
             )[:, None, None, :]
@@ -825,8 +918,8 @@ def time_attention(dev, launches: dict) -> list:
     def sdpa():
         return F.scaled_dot_product_attention(q4, c["k"], c["v"],
                                               attn_mask=mask, enable_gqa=True)
-    if not torch.allclose(sdpa()[:, :, 0].float(), got.float(), atol=2e-2,
-                          rtol=2e-2):
+    if not torch.allclose(sdpa()[:, :, 0].float(), want.float(),
+                          **YARDSTICK_TOL):
         fail("SDPA yardstick does not compute decode attention's function")
     ms, plain_ms = _time_pair(
         lambda: cases.run_decode(decode_attention_bhd, c),
@@ -836,18 +929,25 @@ def time_attention(dev, launches: dict) -> list:
               + 4 * B + 4 * Sc)                             # lengths, positions
     flops = 4 * D * H * B * Sc                              # every slot kept
     bound_ms, bound_by = _bound(nbytes, flops)
-    log(f"{name}: H={H} KV={KV} D={D}: max abs err {err:.3g}, kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA {library_ms:.4f} ms, bound {bound_ms:.4f} "
-        f"ms ({bound_by}; {nbytes} B), achieved "
-        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
-    out.append({"name": name, "route": "cuda",
-                "source": "src/repro_torch/csrc/decode_attention.cu",
-                "replaces": "src/repro/kernels/decode_attention.py:72",
-                "launches": launches["decode"],
-                "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by, "library_ms": library_ms})
-    return out
+    tile = tile_slots(torch.bfloat16, D)
+    blocks = B * KV * -(-(H // KV) // ROW_GROUP)
+    n_splits = len(split_ranges(Sc, choose_splits(
+        blocks, Sc, tile, torch.cuda.get_device_properties(
+            dev).multi_processor_count), tile))
+    dev_ms = _device_ms_per_call(
+        lambda: cases.run_decode(decode_attention_bhd, c))
+    log(f"{name}: H={H} KV={KV} D={D}, {blocks} x {n_splits} blocks: max abs "
+        f"err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} "
+        f"B), achieved {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time "
+        f"per call (profiler): kernel {dev_ms}, SDPA "
+        f"{_device_ms_per_call(sdpa)}")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/decode_attention.cu",
+            "replaces": "src/repro/kernels/decode_attention.py:72",
+            "launches": launches["decode"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 # -- phase 11: B4 against its plain version -----------------------------------

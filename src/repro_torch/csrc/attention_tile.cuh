@@ -1,6 +1,7 @@
-// Shared pieces of the port's flash attention (B3) and decode attention
-// (B2) kernels for Hopper (sm_90a): staging rows of Q, K and V into shared
-// memory as fp32, and one online-softmax step over a kv tile.
+// The CUDA-core pieces of the port's flash attention (B3, its float32 route
+// and bf16 at head dims 16 and 32, in flash_attention.cu) for Hopper
+// (sm_90a): staging rows of Q, K and V into shared memory as fp32, and one
+// online-softmax step over a kv tile.
 //
 // A block has 128 threads, seen as 16 row groups (ty) by 8 column groups
 // (tx).  A query tile has BQ = 16 * RPT rows: thread (ty, tx) owns rows

@@ -1,4 +1,5 @@
-// Flash attention for prefill on Hopper (sm_90a), fp32 or bf16 (B3).
+// Flash attention for prefill on Hopper (sm_90a), fp32 at every head dim
+// and bf16 at head dims 16 and 32 (B3's CUDA-core route).
 //
 // Replaces the Pallas TPU kernel `flash_attention_bhsd` (its `_kernel`) in
 // src/repro/kernels/flash_attention.py.  It computes what that kernel
@@ -32,8 +33,13 @@
 // strides given by the caller, the last one 1, so the model's [B, S, H, D]
 // activations are read in place.
 //
-// Known limit: fp32 CUDA-core arithmetic reaches a small share of the
-// tensor cores' bf16 rate.  wgmma on bf16 tiles fed by TMA is later work.
+// Routing: bf16 at head dims 64, 128 and 256 goes to the tensor-core
+// kernel in flash_attention_wgmma.cu (wgmma fed by TMA), which this file's
+// fp32 CUDA-core arithmetic could not approach: it reached 2.4% of the
+// bf16 tensor-core rate.  float32 stays here, so that it keeps its 2e-5
+// agreement with the plain version and the float32 token identity that
+// tensor cores in bf16 or TF32 would break; bf16 at D 16 and 32 (test
+// shapes, no model in the zoo) stays here too.
 //
 // C interface (bound with ctypes): fa_launch returns the cudaError_t of the
 // launch, 0 on success.
@@ -139,14 +145,21 @@ int launch(const FaArgs& a, int B, cudaStream_t stream) {
 // Tiles per head dim: 64 query rows (32 at D = 256), 64 kv slots (32 at
 // D >= 128), so that accumulators fit in registers and two or more blocks
 // fit on an SM.
-template <typename T>
-int dispatch(const FaArgs& a, int B, int D, cudaStream_t stream) {
+int dispatch_f32(const FaArgs& a, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch<T, 16, 4, 8>(a, B, stream);
-    case 32: return launch<T, 32, 4, 8>(a, B, stream);
-    case 64: return launch<T, 64, 4, 8>(a, B, stream);
-    case 128: return launch<T, 128, 4, 4>(a, B, stream);
-    case 256: return launch<T, 256, 2, 4>(a, B, stream);
+    case 16: return launch<float, 16, 4, 8>(a, B, stream);
+    case 32: return launch<float, 32, 4, 8>(a, B, stream);
+    case 64: return launch<float, 64, 4, 8>(a, B, stream);
+    case 128: return launch<float, 128, 4, 4>(a, B, stream);
+    case 256: return launch<float, 256, 2, 4>(a, B, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+int dispatch_bf16(const FaArgs& a, int B, int D, cudaStream_t stream) {
+  switch (D) {
+    case 16: return launch<__nv_bfloat16, 16, 4, 8>(a, B, stream);
+    case 32: return launch<__nv_bfloat16, 32, 4, 8>(a, B, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -155,7 +168,8 @@ int dispatch(const FaArgs& a, int B, int D, cudaStream_t stream) {
 
 extern "C" {
 
-// dtype 0: fp32, 1: bf16.  Strides are in elements; window <= 0: none.
+// dtype 0: fp32 (D in {16, 32, 64, 128, 256}), 1: bf16 (D in {16, 32}).
+// Strides are in elements; window <= 0: none.
 int fa_launch(int dtype, const void* q, const void* k, const void* v,
               void* out, int B, int H, int KV, int S, int D, int64_t q_sb,
               int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
@@ -166,8 +180,8 @@ int fa_launch(int dtype, const void* q, const void* k, const void* v,
                  q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
                  o_sb, o_sh, o_ss, causal, window, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1) return dispatch<__nv_bfloat16>(a, B, D, s);
-  return dispatch<float>(a, B, D, s);
+  if (dtype == 1) return dispatch_bf16(a, B, D, s);
+  return dispatch_f32(a, B, D, s);
 }
 
 }  // extern "C"

@@ -110,9 +110,14 @@ def load_library() -> ctypes.CDLL:
     lib.fa_launch.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
                               *[i64] * 12, ci, ci, ctypes.c_float, vp]
     lib.fa_launch.restype = ci
-    lib.da_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                              *[i64] * 10, ci, ctypes.c_float, vp]
+    lib.fa_wgmma_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                    *[i64] * 12, ci, ci, ctypes.c_float, vp]
+    lib.fa_wgmma_launch.restype = ci
+    lib.da_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
+                              ci, ci, ci, *[i64] * 10, ci, ctypes.c_float, vp]
     lib.da_launch.restype = ci
+    lib.da_tile_slots.argtypes = [ci, ci]
+    lib.da_tile_slots.restype = ci
     lib.ms_launch.argtypes = [*[vp] * 8, ci, ci, ci, ci, vp]
     lib.ms_launch.restype = ci
     return lib

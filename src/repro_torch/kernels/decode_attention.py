@@ -15,13 +15,19 @@ and ring caches work:
 * inputs float32 or bfloat16, float32 accumulation, output in q's dtype.
 
 ``decode_attention_bhd`` is the wrapper.  For tensors on the card it
-launches the hand-written CUDA kernel in ``csrc/decode_attention.cu`` (one
-thread block per (sequence, kv head) with its ``r`` query heads as rows,
-a loop over the cache in tiles staged through shared memory; the source
-says what bounds it) and raises on what the kernel does not take.  For
-tensors on the CPU it computes ``decode_attention_reference``, the plain
-PyTorch version and the twin of ``repro.kernels.ref.decode_attention_ref``.
-The TPU kernel's ``blk_s``/``interpret`` have no meaning here.
+launches the hand-written CUDA kernel in ``csrc/decode_attention.cu`` and
+raises on what the kernel does not take.  The kernel splits the cache over
+``n_splits`` blocks per (sequence, kv head, group of 16 query heads)
+(``choose_splits``: about two waves of the card's SMs, each split at least
+one tile of ``tile_slots`` slots), streams its tiles through a ``cp.async``
+ring, multiplies on the tensor cores (``mma.sync``) in bf16 and on CUDA
+cores in float32, and merges the splits' partial softmax states in a fixed
+order inside the same launch; the source says what bounds it.
+``decode_attention_split_reference`` is that split rule in plain PyTorch,
+for the tests.  For tensors on the CPU the wrapper computes
+``decode_attention_reference``, the plain PyTorch version and the twin of
+``repro.kernels.ref.decode_attention_ref``.  The TPU kernel's
+``blk_s``/``interpret`` have no meaning here.
 
 Layouts.  The caches are ``[B, KV, S, D]`` with any strides whose last is
 1, so the model passes its ``[B, S, KV, D]`` cache as a transposed view
@@ -31,6 +37,8 @@ over the batch (batch stride 0).
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
 from typing import Optional
 
 import torch
@@ -38,6 +46,31 @@ import torch
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, NEG_INF
 
 MAX_GROUP = 48          # query heads per kv head the kernel takes
+ROW_GROUP = 16          # query heads per block: one m16 tile
+WAVES = 2               # blocks per SM the split rule aims for
+MAX_SPLITS = 16         # one block merges them all, one after another
+
+
+def tile_slots(dtype: torch.dtype, head_dim: int) -> int:
+    """Cache slots per tile of the kernel's (dtype, D) instantiation (the
+    ``BK`` of ``Cfg`` in ``csrc/decode_attention.cu``)."""
+    return 64 if dtype == torch.bfloat16 or head_dim <= 64 else 32
+
+
+def split_ranges(S: int, n_splits: int, tile: int) -> list:
+    """The slot ranges ``[lo, hi)`` the kernel's splits take: whole tiles,
+    ``ceil(tiles / n)`` per split, so that no split is empty (``n_splits``
+    is capped to the tile count and may come out smaller)."""
+    tiles = -(-S // tile)
+    per = -(-tiles // max(1, min(n_splits, tiles)))
+    return [(lo, min(S, lo + per * tile)) for lo in range(0, S, per * tile)]
+
+
+def choose_splits(blocks: int, S: int, tile: int, n_sm: int) -> int:
+    """Splits per (sequence, kv head, row group): enough for ``blocks``
+    such groups to cover about ``WAVES`` waves of ``n_sm`` SMs, at most
+    one per tile and at most ``MAX_SPLITS``."""
+    return max(1, min(-(-S // tile), -(-WAVES * n_sm // blocks), MAX_SPLITS))
 
 
 def decode_attention_reference(q, k_cache, v_cache, cache_len, positions, *,
@@ -56,6 +89,38 @@ def decode_attention_reference(q, k_cache, v_cache, cache_len, positions, *,
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bgsd->bgrd", a, v_cache.float())
     return o.reshape(B, H, D).to(q.dtype)
+
+
+def decode_attention_split_reference(q, k_cache, v_cache, cache_len,
+                                     positions, *, n_splits: int,
+                                     window: Optional[int] = None,
+                                     tile: Optional[int] = None):
+    """The kernel's split rule in plain PyTorch (used by the tests): each
+    split of ``split_ranges`` keeps its own (max m, sum l, output o) over
+    its slots, masked scores at -1e30, and the splits are merged in order
+    with a log-sum-exp rescale.  ``tile`` defaults to the kernel's."""
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    tile = tile or tile_slots(q.dtype, D)
+    qg = q.reshape(B, KV, H // KV, D).float()
+    s = torch.einsum("bgrd,bgsd->bgrs", qg, k_cache.float()) / (D ** 0.5)
+    clen = cache_len[:, None]
+    valid = (positions >= 0) & (positions < clen)
+    if window is not None:
+        valid &= positions > clen - 1 - window
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    parts = []
+    for lo, hi in split_ranges(S, n_splits, tile):
+        m = s[..., lo:hi].amax(-1, keepdim=True)
+        p = torch.exp(s[..., lo:hi] - m)
+        parts.append((m, p.sum(-1, keepdim=True), torch.einsum(
+            "bgrs,bgsd->bgrd", p, v_cache[:, :, lo:hi].float())))
+    mg = torch.stack([m for m, _, _ in parts]).amax(0)
+    num, den = 0.0, 0.0
+    for m, l_, o in parts:                      # split order
+        w = torch.exp(m - mg)
+        num, den = num + w * o, den + w * l_
+    return (num / den).reshape(B, H, D).to(q.dtype)
 
 
 def _check(q, k_cache, v_cache, cache_len, positions, window) -> None:
@@ -96,35 +161,72 @@ def _check(q, k_cache, v_cache, cache_len, positions, window) -> None:
         raise ValueError("the rows of positions must be contiguous")
 
 
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_COUNTERS: dict = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    """The device's split counters, at least ``n``: zeroed once when made,
+    and left at zero by every launch (its last block of each group resets
+    its entry).  Calls on one device share them, so they must not run
+    concurrently on two streams."""
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return buf
+
+
 def decode_attention_bhd(q, k_cache, v_cache, cache_len, positions, *,
                          window: Optional[int] = None):
     """q: [B, H, D]; caches: [B, KV, S, D] (float32 or bfloat16);
     cache_len: [B] i32; positions: [B, S] i32 (absolute position per slot,
     -1 = never valid).  Returns [B, H, D] in q's dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel and
-    add one to ``decode_attention_bhd.launches``."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    split as ``choose_splits`` says, and add one to
+    ``decode_attention_bhd.launches``."""
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, cache_len,
                                           positions, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
+    return _launch(q, k_cache, v_cache, cache_len, positions, window=window)
+
+
+def _launch(q, k_cache, v_cache, cache_len, positions, *,
+            window: Optional[int] = None, n_splits: Optional[int] = None):
+    """Launch the kernel on CUDA tensors.  ``n_splits`` (None: the rule of
+    ``choose_splits``) lets the tests reach split counts the rule does not
+    pick at their shapes."""
     _check(q, k_cache, v_cache, cache_len, positions, window)
     from repro_torch.kernels._build import load_library
     lib = load_library()
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
+    blocks = B * KV * -(-(H // KV) // ROW_GROUP)
+    if n_splits is None:
+        n_splits = choose_splits(blocks, S, tile_slots(q.dtype, D),
+                                 _sm_count(q.device.index))
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    part = torch.empty(blocks * n_splits * ROW_GROUP * (D + 2) if n_splits > 1
+                       else 0, dtype=torch.float32, device=q.device)
+    counters = _counters(q.device, blocks)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.da_launch(
             DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
             v_cache.data_ptr(), cache_len.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), B, H, KV, S, D, q.stride(0), q.stride(1),
+            out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, H, KV,
+            S, D, int(n_splits), q.stride(0), q.stride(1),
             *k_cache.stride()[:3], *v_cache.stride()[:3],
             cache_len.stride(0), positions.stride(0),
             -1 if window is None else int(window),
-            ctypes.c_float(1.0 / D ** 0.5), stream)
+            ctypes.c_float(math.log2(math.e) / D ** 0.5), stream)
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     decode_attention_bhd.launches += 1

@@ -11,13 +11,24 @@ positions its masks allow, with an online softmax over kv tiles:
 * inputs float32 or bfloat16, float32 accumulation, output in q's dtype.
 
 ``flash_attention_bhsd`` is the wrapper.  For tensors on the card it
-launches the hand-written CUDA kernel in ``csrc/flash_attention.cu`` (one
-thread block per (sequence·head, query tile), K/V tiles staged through
-shared memory, fully masked kv tiles skipped; the source says what bounds
-it) and raises on what the kernel does not take.  For tensors on the CPU
-it computes ``flash_attention_reference``, the plain PyTorch version and
-the twin of ``repro.kernels.ref.flash_attention_ref``.  The TPU kernel's
-``blk_q``/``blk_k``/``interpret`` have no meaning here.
+launches one of two hand-written CUDA kernels, chosen by dtype and head
+dim (``route``), and raises on what neither takes:
+
+* ``"wgmma"``, bfloat16 with ``D`` in ``WGMMA_HEAD_DIMS`` (64, 128, 256:
+  every attention model of the zoo): ``csrc/flash_attention_wgmma.cu``,
+  tensor cores (``wgmma``) fed by TMA through a two-stage ring, 64 query
+  rows per warpgroup;
+* ``"simt"``, float32 at every head dim and bfloat16 at ``D`` 16 and 32
+  (test shapes only): ``csrc/flash_attention.cu``, fp32 FMAs on CUDA
+  cores, which keeps float32 within 2e-5 of the plain version.
+
+Both skip fully masked kv tiles; the sources say what bounds them.  The
+choice is fixed, not a fallback: a failed launch raises.  Each launch adds
+one to ``flash_attention_bhsd.launches`` and to its route's entry in
+``flash_attention_bhsd.launches_by_route``.  For tensors on the CPU the
+wrapper computes ``flash_attention_reference``, the plain PyTorch version
+and the twin of ``repro.kernels.ref.flash_attention_ref``.  The TPU
+kernel's ``blk_q``/``blk_k``/``interpret`` have no meaning here.
 
 Layouts.  Besides the TPU kernel's ``[BH, S, D]``, the wrapper takes
 ``[B, H, S, D]`` tensors with any strides whose last one is 1, so the
@@ -28,6 +39,7 @@ out ``[B, S, H, D]``.  ``[BH, S, D]`` is the case ``B = 1``.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Optional
 
 import torch
@@ -35,6 +47,14 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+WGMMA_HEAD_DIMS = (64, 128, 256)    # bf16 head dims of the tensor-core kernel
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernel takes a call on the card: ``"wgmma"`` for bfloat16 at
+    the head dims of ``WGMMA_HEAD_DIMS``, else ``"simt"``."""
+    return ("wgmma" if dtype == torch.bfloat16
+            and head_dim in WGMMA_HEAD_DIMS else "simt")
 
 
 def flash_attention_reference(q, k, v, *, causal: bool = True,
@@ -98,8 +118,9 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
     """q: [BH, S, D] or [B, H, S, D]; k, v: [BKV, S, D] or [B, KV, S, D];
     float32 or bfloat16.  Returns q's shape and dtype.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel and
-    add one to ``flash_attention_bhsd.launches``."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel of
+    ``route(q.dtype, D)`` and add one to ``flash_attention_bhsd.launches``
+    and to that route's count in ``launches_by_route``."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, causal=causal,
                                          window=window)
@@ -117,19 +138,26 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
     else:   # laid out [B, S, H, D], returned as a [B, H, S, D] view
         out4 = torch.empty((B, S, H, D), dtype=q.dtype,
                            device=q.device).transpose(1, 2)
+    which = route(q.dtype, D)
+    args = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
+            B, H, KV, S, D, *q4.stride()[:3], *k4.stride()[:3],
+            *v4.stride()[:3], *out4.stride()[:3], int(causal),
+            -1 if window is None else int(window))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.fa_launch(
-            DTYPES[q.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-            out4.data_ptr(), B, H, KV, S, D,
-            *q4.stride()[:3], *k4.stride()[:3], *v4.stride()[:3],
-            *out4.stride()[:3], int(causal),
-            -1 if window is None else int(window),
-            ctypes.c_float(1.0 / D ** 0.5), stream)
+        if which == "wgmma":        # exp2 scores: log2(e) folded in
+            err = lib.fa_wgmma_launch(
+                *args, ctypes.c_float(math.log2(math.e) / D ** 0.5), stream)
+        else:
+            err = lib.fa_launch(DTYPES[q.dtype], *args,
+                                ctypes.c_float(1.0 / D ** 0.5), stream)
     if err:
-        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+        raise RuntimeError(f"flash_attention {which} launch failed: error "
+                           f"{err}")
     flash_attention_bhsd.launches += 1
+    flash_attention_bhsd.launches_by_route[which] += 1
     return out4 if q.dim() == 4 else out4[0]
 
 
 flash_attention_bhsd.launches = 0
+flash_attention_bhsd.launches_by_route = {"wgmma": 0, "simt": 0}

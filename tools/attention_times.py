@@ -1,0 +1,89 @@
+#!/usr/bin/env python3
+"""Time B3 (flash attention) and B2 (decode attention) on the card.
+
+    python tools/attention_times.py [--root CHECKOUT] [--tag NAME] [--splits]
+
+Runs the port's kernels from the checkout at CHECKOUT (default: this one)
+at ``chip_smoke.py``'s phase-10 shapes, bf16, and prints for each the
+time per call by CUDA events over 20 back-to-back calls (the wrapper's
+host work between launches included) and the device time per call from
+``torch.profiler`` (left out), with the largest error against the plain
+version.  Both times come from this checkout's ``chip_smoke.py``
+(``cuda_ms`` and ``_device_ms_per_call``), whatever CHECKOUT is, so that
+two checkouts are timed alike.  ``--splits`` also times B2 at forced
+split counts (``None`` is the wrapper's rule; CHECKOUT must have the
+split kernel).  To compare two checkouts, unpack one beside the other
+(``git archive``) and run both, in turns, on one card.  Needs a CUDA
+device; the CHECKOUT's ``tests/test_torch_attention_cuda.py`` builds the
+inputs.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib.util
+import sys
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parents[1]
+FLASH_SHAPES = ((8, 512, 14, 2, 64), (1, 4096, 14, 2, 64),
+                (8, 512, 32, 32, 64), (8, 512, 16, 16, 128))
+DECODE_SHAPES = ((64, 4096), (8, 544))
+SPLIT_SHAPES = {(64, 4096): (None, 1, 2, 3, 9, 16),
+                (8, 544): (None, 1, 3, 9),
+                (1, 8192): (None, 16, 64, 128)}
+
+
+def _smoke():
+    """This checkout's chip_smoke.py, for its timing helpers."""
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  HERE / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE)
+    ap.add_argument("--tag", default="")
+    ap.add_argument("--splits", action="store_true")
+    args = ap.parse_args()
+    smoke = _smoke()
+    sys.path[:0] = [str(args.root / "src"), str(args.root / "tests")]
+    import torch
+
+    import test_torch_attention_cuda as cases
+    from repro_torch.kernels.decode_attention import (
+        decode_attention_bhd, decode_attention_reference)
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bhsd, flash_attention_reference)
+    if not torch.cuda.is_available():
+        sys.exit("needs a CUDA device")
+    dev, tag = torch.device("cuda"), f"[{args.tag}] " if args.tag else ""
+
+    def report(what, fn, plain):
+        err = (fn().float() - plain().float()).abs().max().item()
+        print(f"{tag}{what}: events {smoke.cuda_ms(fn):.4f} ms, device "
+              f"{smoke._device_ms_per_call(fn)}, max abs err {err:.3g}",
+              flush=True)
+
+    for B, S, H, KV, D in FLASH_SHAPES:
+        c = cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H, KV=KV, D=D)
+        report(f"B3 B{B} S{S} H{H} KV{KV} D{D}",
+               lambda: cases.run_flash(flash_attention_bhsd, c),
+               lambda: cases.run_flash(flash_attention_reference, c))
+    shapes = SPLIT_SHAPES if args.splits else {s: (None,)
+                                               for s in DECODE_SHAPES}
+    for (B, Sc), splits in shapes.items():
+        c = cases.model_decode(dev, torch.bfloat16, B=B, Sc=Sc)
+        c["cache_len"] = torch.full((B,), Sc, dtype=torch.int32, device=dev)
+        for n in splits:
+            def fn(n=n):
+                return (cases.run_decode(decode_attention_bhd, c) if n is None
+                        else cases.run_decode_splits(c, n))
+            report(f"B2 B{B} S{Sc}" + (f" splits {n}" if args.splits else ""),
+                   fn, lambda: cases.run_decode(decode_attention_reference, c))
+
+
+if __name__ == "__main__":
+    main()
