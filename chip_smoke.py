@@ -17,15 +17,21 @@ fails:
    ``paged_decode_attention_reference`` on the same inputs on the card, at
    the serving shapes (H 14, KV 2, D 64, block 64, up to 64 rows of up to
    32 pages) and at the CPU tests' edge cases, fp32 and int8, atol = rtol
-   = 1e-5;
+   = 1e-5; then the split over pages at forced split counts (1 to one
+   page a split, through the private ``_launch``), on the edge cases and
+   at 8 and 64 serving rows, seq_len-0 rows and a row whose valid pages
+   lie in one split among them;
 5. token identity: ``TorchBackend`` on the card and on the CPU sample the
    same tokens on the conformance workload (k=1, and k=4 under swap
    churn);
-6. times at the serving shapes with CUDA events: the kernel, the plain
+6. times at the serving shapes, 64 rows and the serve runs' 8 rows of 32
+   full pages, fp32 and int8, with CUDA events: the kernel, the plain
    version, ``scaled_dot_product_attention`` over the gathered contiguous
    K/V as a yardstick (the port never calls it), and the bytes bound at
-   3.35 TB/s; the kernel is first held to its plain version on the timed
-   inputs, and that error is the entry's ``max_abs_err``;
+   3.35 TB/s, with the kernel's and SDPA's device time per call from
+   ``torch.profiler`` (phase 10's helper); the kernel is first held to its
+   plain version on the timed inputs, and that error is the entry's
+   ``max_abs_err``;
 7. the model path at full width: qwen2-0.5b as published (24 layers,
    d_model 896, 14/2 heads, vocab 151,936, bf16), weights from
    ``torch.Generator`` seed 0 on the card; prefill 8 prompts of 512
@@ -76,7 +82,9 @@ fails:
    shapes, a ragged Di, nonzero initial states, d_state 32 and 64, and
    falcon-mamba-7b's width (8 x 8192 channels, d_state 16) at T = 1 from a
    state, at T = 1 writing h_last over h0 (as a decode step writes its
-   cache entry) and at T = 512;
+   cache entry) and at T = 512; then every d_state with its lanes per
+   channel at T = 1, 15, 17 and 40 (tiles of 16 steps), and h_last over h0
+   at every d_state with 16-byte and 4-byte copies;
 12. the state-space path at full width: falcon-mamba-7b as published (64
    Mamba-1 layers, d_model 4096, d_inner 8192, d_state 16, dt_rank 256,
    vocab 65,024, untied, bf16; 7,272,665,088 parameters), run as phase 7
@@ -97,8 +105,9 @@ fails:
    one decode step (8 x 1 from a state): each first held to its plain
    version on the timed inputs (1e-4; that error is the entry's
    ``max_abs_err``), then timed beside its plain version, with its bound
-   (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s); no one
-   PyTorch call computes the scan, so its ``library_ms`` is null.
+   (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s) and its
+   device time per call (phase 10's helper); no one PyTorch call computes
+   the scan, so its ``library_ms`` is null.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -232,14 +241,15 @@ def main() -> None:
                      f"{tuple(args[1].shape)}): max abs err {err:.3g}")
     log(f"kernel vs plain version: max abs err fp32 {worst['float32']:.3g}, "
         f"int8 {worst['int8']:.3g} (atol = rtol = 1e-5)")
+    paged_splits_vs_plain(dev, worst)
 
     # 5. token identity on the card and on the CPU, at small width
     token_identity()
 
     # 6. times at the serving shapes
-    entries = []
-    for quantized, run in ((False, fp32_run), (True, int8_run)):
-        entries.append(time_kernel(quantized, dev, run["launches"], worst))
+    entries = [time_kernel(quantized, dev, run["launches"], worst, rows)
+               for rows in (64, 8)
+               for quantized, run in ((False, fp32_run), (True, int8_run))]
 
     # 7.-10. the model path of the attention-only archs, B3 and B2
     from repro_torch.kernels.decode_attention import decode_attention_bhd
@@ -363,6 +373,43 @@ def to_device(case: dict, dev):
     return args, kw
 
 
+def paged_splits_vs_plain(dev, worst: dict) -> None:
+    """B1's split over pages against the plain version: the edge cases
+    (nb 5, seq_len-0 rows on real and -1 pages) at 1 to 5 splits, and the
+    serving shapes at 8 and 64 rows (tests/test_torch_kernels_cuda.py's
+    ``serving_rows``: a seq_len-0 row, a row whose valid pages all lie in
+    the first split) at the rule's count and at 1, 2, 3, 16 and 32 (one
+    page a split), through the private ``_launch(n_splits=...)``."""
+    import torch
+
+    from repro_torch.kernels.paged_decode_attention import (
+        _launch, paged_decode_attention_reference as plain)
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_kernels_cuda as cases
+    n = 0
+    for quantized in (False, True):
+        key = "int8" if quantized else "float32"
+        todo = [(c, s) for c in edge_cases(quantized)[::5]
+                for s in (1, 2, 3, 5)]
+        todo += [(cases.serving_rows(rows, quantized=quantized, seed=rows), s)
+                 for rows in (8, 64) for s in (None, 1, 2, 3, 16, 32)]
+        for case, n_splits in todo:
+            args, kw = to_device(case, dev)
+            got = _launch(*args, **kw, n_splits=n_splits)
+            torch.cuda.synchronize()
+            want = plain(*args, **kw)
+            err = (got - want).abs().max().item()
+            worst[key] = max(worst[key], err)
+            n += 1
+            if not torch.allclose(got, want, **TOL):
+                fail(f"split kernel disagrees with its plain version ({key}, "
+                     f"{n_splits} splits, q {tuple(args[0].shape)}, pages "
+                     f"{tuple(args[1].shape)}): max abs err {err:.3g}")
+    log(f"B1 split cases vs plain version over {n} calls: max abs err fp32 "
+        f"{worst['float32']:.3g}, int8 {worst['int8']:.3g} (all phase-4 "
+        f"calls; atol = rtol = 1e-5)")
+
+
 # -- phase 5 ---------------------------------------------------------------
 
 def token_identity() -> None:
@@ -458,15 +505,22 @@ def bound(args, kw) -> tuple:
             else "operations", nbytes)
 
 
-def time_kernel(quantized: bool, dev, launches: int, worst: dict) -> dict:
+def time_kernel(quantized: bool, dev, launches: int, worst: dict,
+                rows: int = 64) -> dict:
+    """B1 at the serving shapes, ``rows`` rows of 32 full pages: held to
+    its plain version, then timed by CUDA events (the wrapper's host work
+    included) and by device time per call, beside its plain version, SDPA
+    over the gathered K/V (fp32) and its bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.paged_decode_attention import (
+        ROW_GROUP, _blocks_per_sm, choose_splits, split_ranges,
         paged_decode_attention as kernel,
         paged_decode_attention_reference as plain,
     )
-    args, kw = to_device(serving_case(quantized, dev, ragged=False), dev)
+    args, kw = to_device(serving_case(quantized, dev, ragged=False,
+                                      rows=rows), dev)
     q, k_pages, v_pages, bt, sl = args
     B, H, D = q.shape
     KV, _, block, _ = k_pages.shape
@@ -475,14 +529,11 @@ def time_kernel(quantized: bool, dev, launches: int, worst: dict) -> dict:
     err = (got - want).abs().max().item()
     if not torch.allclose(got, want, **TOL):
         fail(f"kernel disagrees with its plain version at the timed shape "
-             f"({key}): max abs err {err:.3g}")
-    # kernel, plain, plain, kernel: the order guards against drift
-    ms = cuda_ms(lambda: kernel(*args, **kw))
-    plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=5)
-    plain_ms = min(plain_ms, cuda_ms(lambda: plain(*args, **kw), iters=5))
-    ms = min(ms, cuda_ms(lambda: kernel(*args, **kw)))
+             f"({key}, {rows} rows): max abs err {err:.3g}")
+    ms, plain_ms = _time_pair(lambda: kernel(*args, **kw),
+                              lambda: plain(*args, **kw))
     bound_ms, bound_by, nbytes = bound(args, kw)
-    library_ms = None
+    library_ms = sdpa_dev = None
     if not quantized:
         # yardstick only: SDPA over the gathered contiguous K/V (the same
         # function when every row is at full length); never called by
@@ -493,26 +544,28 @@ def time_kernel(quantized: bool, dev, launches: int, worst: dict) -> dict:
         kc = kc.repeat_interleave(H // KV, dim=1).contiguous()
         vc = vc.repeat_interleave(H // KV, dim=1).contiguous()
         q4 = q[:, :, None, :]
-        got = F.scaled_dot_product_attention(q4, kc, vc)[:, :, 0]
-        if not torch.allclose(got, kernel(*args, **kw), atol=1e-3,
-                              rtol=1e-3):
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, kc, vc)
+        if not torch.allclose(sdpa()[:, :, 0], want, atol=1e-3, rtol=1e-3):
             fail("SDPA yardstick does not compute the kernel's function")
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(q4, kc, vc))
-    name = "paged_decode_attention_" + ("i8" if quantized else "f32")
+        library_ms = cuda_ms(sdpa)
+        sdpa_dev = _device_ms_per_call(sdpa)
+    dev_ms = _device_ms_per_call(lambda: kernel(*args, **kw))
+    groups = B * KV * -(-(H // KV) // ROW_GROUP)
+    n_splits = len(split_ranges(bt.shape[1], choose_splits(
+        groups, bt.shape[1],
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        _blocks_per_sm(q.get_device(), quantized, D, bt.shape[1]))))
+    name = "paged_decode_attention_" + ("i8" if quantized else "f32") + (
+        "" if rows == 64 else f"_b{rows}")
     log(f"{name}: B={B} H={H} KV={KV} D={D} block={block} "
-        f"pages/row={bt.shape[1]}: max abs err {err:.3g} (all cases "
-        f"{worst[key]:.3g}), kernel {ms:.4f} ms, plain "
+        f"pages/row={bt.shape[1]}, {groups} x {n_splits} blocks: max abs err "
+        f"{err:.3g} (all cases {worst[key]:.3g}), kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {library_ms} ms, bound {bound_ms:.4f} "
         f"ms ({bound_by}, {nbytes} B), achieved "
-        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s")
-    # the smoke serving runs' batch: one block per (row, kv head) fills
-    # 16 of the 132 SMs
-    args8, kw8 = to_device(serving_case(quantized, dev, ragged=False,
-                                        rows=8), dev)
-    log(f"{name} at 8 rows: kernel "
-        f"{cuda_ms(lambda: kernel(*args8, **kw8)):.4f} ms, bound "
-        f"{bound(args8, kw8)[0]:.4f} ms")
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time per call "
+        f"(profiler): kernel {dev_ms}, SDPA {sdpa_dev}")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:164",
@@ -1001,6 +1054,27 @@ def scan_vs_plain(dev) -> float:
         fail("scan kernel did not write h_last where asked")
     worst = max(worst, _scan_err(got, want, "falcon-T1-in-place"))
     todo.append(("falcon-T1-in-place", c))
+    # the design's cases: every N with its lanes per channel at T on either
+    # side of the 16-step tile, and h_last over h0 at every N with 16-byte
+    # (Di 256) and 4-byte (Di 130) copies
+    for N, T in cases.STATE_CASES:
+        c = cases.to_torch(cases.scan_case(2, T, 200, N, True), dev)
+        got = cases.run(mamba1_scan, c)
+        torch.cuda.synchronize()
+        worst = max(worst, _scan_err(got, cases.run(mamba1_scan_reference, c),
+                                     f"N{N}-T{T}"))
+        todo.append((f"N{N}-T{T}", c))
+    for N in (8, 16, 32, 64):
+        for Di in (256, 130):
+            c = cases.to_torch(cases.scan_case(3, 1, Di, N, True, seed=5), dev)
+            want = cases.run(mamba1_scan_reference, c)
+            h = c["h0"].clone()
+            got = mamba1_scan(c["x"], c["dt"], c["Bt"], c["Ct"], c["A"], h, h)
+            torch.cuda.synchronize()
+            if got[1] is not h:
+                fail("scan kernel did not write h_last where asked")
+            worst = max(worst, _scan_err(got, want, f"N{N}-Di{Di}-in-place"))
+            todo.append((f"N{N}-Di{Di}-in-place", c))
     log(f"B4 kernel vs plain version over {len(todo)} calls (y and h_last): "
         f"max abs err {worst:.3g} (atol = rtol = 1e-4)")
     return worst
@@ -1038,16 +1112,14 @@ def time_scan(dev, launches: int) -> list:
         bound_ms = max(t_bytes, t_ops)
         bound_by = "bytes" if t_bytes >= t_ops else "operations"
         # the device's own time per call, apart from the wrapper's host
-        # work between back-to-back launches
-        wall_ms, dev_ms, n_kernels, _ = device_share(
-            lambda: [cases.run(mamba1_scan, c) for _ in range(20)])
+        # work between back-to-back launches (phase 10's method)
+        dev_ms = _device_ms_per_call(lambda: cases.run(mamba1_scan, c))
         log(f"{name}: Di={Di} N={N}: max abs err {err:.3g}, kernel {ms:.4f} "
             f"ms, plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}; {nbytes} B, {flops} flop), achieved "
             f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s, "
-            f"{B * T * Di * N / (ms * 1e-3) / 1e12:.3f} T exp/s; profiler: "
-            f"{n_kernels} kernels, {dev_ms / max(n_kernels, 1):.4f} ms of "
-            f"device time each, 20 calls in {wall_ms:.3f} ms wall")
+            f"{B * T * Di * N / (ms * 1e-3) / 1e12:.3f} T exp/s; device time "
+            f"per call (profiler): kernel {dev_ms}")
         out.append({"name": name, "route": "cuda",
                     "source": "src/repro_torch/csrc/mamba_scan.cu",
                     "replaces": "src/repro/kernels/mamba_scan.py:48",

@@ -13,7 +13,9 @@ into place only once it is complete.
 so a process may call it and still fork workers that use the card.
 ``load_library`` opens the library with ctypes and declares the C
 functions; the wrappers in ``repro_torch.kernels`` call it at their first
-launch, never at import.
+launch, never at import.  ``checked_once`` and ``launch`` keep a
+wrapper's host work per call short: checks run once per call signature,
+and a launch enters a device context only when it must.
 """
 from __future__ import annotations
 
@@ -101,9 +103,11 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, open the library and declare its C functions."""
     lib = ctypes.CDLL(str(build_library()))
     vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pda_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp,
-                               ci, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+    lib.pda_launch.argtypes = [ci, *[vp] * 10, *[ci] * 8, ctypes.c_float,
+                               vp]
     lib.pda_launch.restype = ci
+    lib.pda_blocks_per_sm.argtypes = [ci, ci, ci]
+    lib.pda_blocks_per_sm.restype = ci
     lib.pda_smem_bytes.argtypes = [ci, ci, ci]
     lib.pda_smem_bytes.restype = ctypes.c_size_t
     i64 = ctypes.c_int64
@@ -118,6 +122,37 @@ def load_library() -> ctypes.CDLL:
     lib.da_launch.restype = ci
     lib.da_tile_slots.argtypes = [ci, ci]
     lib.da_tile_slots.restype = ci
-    lib.ms_launch.argtypes = [*[vp] * 8, ci, ci, ci, ci, vp]
+    lib.ms_launch.argtypes = [*[vp] * 8, ci, ci, ci, ci, *[i64] * 4, vp]
     lib.ms_launch.restype = ci
     return lib
+
+
+_MAX_SIGNATURES = 256       # per cache; past it the cache starts anew
+
+
+def checked_once(cache: dict, check, *tensors):
+    """``check()`` once per call signature of ``tensors`` (shape, strides,
+    dtype and device of each; None stays None): the first call with a
+    signature runs it, and raises as it does; a later one returns the
+    value it cached.  ``check`` must read nothing of the tensors but
+    their signature, and return something other than None."""
+    key = tuple(None if t is None else (t.shape, t.stride(), t.dtype,
+                                        t.device) for t in tensors)
+    value = cache.get(key)
+    if value is None:
+        value = check()
+        if len(cache) >= _MAX_SIGNATURES:
+            cache.clear()
+        cache[key] = value
+    return value
+
+
+def launch(index: int, fn, *args) -> int:
+    """Call the C launcher ``fn(*args, stream)`` on the current stream of
+    card ``index``, inside a device context only when ``index`` is not the
+    current device; returns its cudaError_t."""
+    import torch
+    if index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream(index).cuda_stream)
+    with torch.cuda.device(index):
+        return fn(*args, torch.cuda.current_stream(index).cuda_stream)

@@ -15,10 +15,13 @@ written into a given tensor, ``h0`` itself included, so that a decode step
 advances a cache entry in place.
 
 ``mamba1_scan`` is the wrapper.  For tensors on the card it launches the
-hand-written CUDA kernel in ``csrc/mamba_scan.cu`` (one thread per
-(sequence, channel) with its state in registers, 128 channels a block,
-time walked in tiles staged through shared memory; the source says what
-bounds it) and raises on what the kernel does not take.  For tensors on
+hand-written CUDA kernel in ``csrc/mamba_scan.cu`` (each channel's N
+states split over N / 8 lanes of a warp, in registers; time walked in
+tiles that stream through a ``cp.async`` ring in shared memory; the
+source says what bounds it) and raises on what the kernel does not take.
+The checks run once per call signature (shapes, strides, dtypes,
+devices) and are looked up after that; the pointers' alignment is
+checked on every call.  For tensors on
 the CPU it computes ``mamba1_scan_reference``, the plain PyTorch version
 and the twin of ``repro.kernels.ref.mamba1_scan_ref``.  The TPU kernel's
 ``blk_d``/``interpret`` have no meaning here.
@@ -76,6 +79,20 @@ def _check(x, dt, Bt, Ct, A, h0, h_out=None) -> None:
         raise ValueError("the scan's tensors lie on different devices")
 
 
+_CHECKED: dict = {}         # signature -> Bt's and Ct's (batch, time) strides
+
+
+def _checked(x, dt, Bt, Ct, A, h0, h_out) -> tuple:
+    """``_check`` once per call signature (``_build.checked_once``).
+    Returns the element strides (batch, time) of Bt and Ct."""
+    from repro_torch.kernels._build import checked_once
+
+    def check():
+        _check(x, dt, Bt, Ct, A, h0, h_out)
+        return (*Bt.stride()[:2], *Ct.stride()[:2])
+    return checked_once(_CHECKED, check, x, dt, Bt, Ct, A, h0, h_out)
+
+
 def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None):
     """x, dt: [B, T, Di]; Bt, Ct: [B, T, N]; A: [Di, N]; h0: [B, Di, N] or
     None; all float32.  Returns (y [B, T, Di], h_last [B, Di, N]);
@@ -83,34 +100,37 @@ def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None):
     may be ``h0``), else a new tensor.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel and
-    add one to ``mamba1_scan.launches``.  Inputs are made contiguous (B_t
-    and C_t arrive as strided slices of one projection)."""
-    if x.device.type == "cpu":
+    add one to ``mamba1_scan.launches``.  B_t and C_t may be strided slices
+    of one projection (unit last stride); other inputs are made
+    contiguous."""
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"no kernel for device {x.device}")
         y, h = mamba1_scan_reference(x, dt, Bt, Ct, A, h0)
         return y, (h if h_out is None else h_out.copy_(h))
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    _check(x, dt, Bt, Ct, A, h0, h_out)
-    from repro_torch.kernels._build import load_library
+    if Bt.stride(-1) != 1:
+        Bt = Bt.contiguous()
+    if Ct.stride(-1) != 1:
+        Ct = Ct.contiguous()
+    strides = _checked(x, dt, Bt, Ct, A, h0, h_out)
+    from repro_torch.kernels._build import launch, load_library
     lib = load_library()
-    x, dt, Bt, Ct, A = (t.contiguous() for t in (x, dt, Bt, Ct, A))
+    x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()
     h0 = None if h0 is None else h0.contiguous()
     B, T, Di = x.shape
-    N = Bt.shape[2]
+    N = A.shape[1]
     h_last = (torch.empty((B, Di, N), dtype=torch.float32, device=x.device)
               if h_out is None else h_out)
-    if any(t is not None and t.data_ptr() % 16 for t in (A, h0, h_last)):
+    p_a, p_h = A.data_ptr(), h_last.data_ptr()
+    p_h0 = 0 if h0 is None else h0.data_ptr()
+    if (p_a | p_h0 | p_h) % 16:
         raise ValueError("the kernel reads A and h0 rows and writes h_last "
                          "rows as 16-byte vectors: their data must be "
                          "16-byte aligned")
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.ms_launch(x.data_ptr(), dt.data_ptr(), Bt.data_ptr(),
-                            Ct.data_ptr(), A.data_ptr(),
-                            None if h0 is None else h0.data_ptr(),
-                            y.data_ptr(), h_last.data_ptr(), B, T, Di, N,
-                            stream)
+    err = launch(x.get_device(), lib.ms_launch, x.data_ptr(), dt.data_ptr(),
+                 Bt.data_ptr(), Ct.data_ptr(), p_a, p_h0 or None,
+                 y.data_ptr(), p_h, B, T, Di, N, *strides)
     if err:
         raise RuntimeError(f"mamba1_scan launch failed: cudaError {err}")
     mamba1_scan.launches += 1

@@ -6,6 +6,12 @@ installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
+Besides ``make_case``'s rows at every GQA group and head dim, the split
+over pages:
+split counts from 1 to one page per split (through the private
+``_launch(n_splits=...)``; the public wrapper always takes
+``choose_splits``), the serving shapes at 8 and 64 rows, pages of other
+lengths than the 64-slot tile, and bitwise-equal repeated calls.
 ``make_case`` also feeds tests/test_torch_paged_attention.py, which holds
 the plain version against the JAX package on the CPU.
 """
@@ -15,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.paged_decode_attention import _launch as launch_paged
 from repro_torch.kernels.paged_decode_attention import (
     paged_decode_attention,
     paged_decode_attention_reference,
@@ -101,3 +108,101 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
     with pytest.raises(TypeError):           # int64 tables
         paged_decode_attention(args[0], args[1], args[2], args[3].long(),
                                args[4])
+
+
+# -- the split over pages ----------------------------------------------------
+
+def _on(case, device):
+    args, kw = _torch(case)
+    return ([a.to(device) for a in args],
+            {k: v.to(device) for k, v in kw.items()})
+
+
+def serving_rows(rows: int, *, quantized: bool, block: int = 64,
+                 nb: int = 32, seed: int = 0):
+    """qwen2-0.5b's heads (H 14, KV 2, D 64) over a pool of rows * nb
+    pages: ragged lengths, a seq_len-0 row, a -1 entry inside a range, and
+    a long table whose valid pages all lie in its first split."""
+    rng = np.random.default_rng(seed)
+    N = rows * nb
+    bt = rng.permutation(N).astype(np.int32).reshape(rows, nb)
+    lens = rng.integers(1, nb * block + 1, rows).astype(np.int32)
+    lens[0] = 2 * block - 3                   # two pages of 32: one split
+    lens[1] = 0
+    for b in range(rows):
+        bt[b, -(-int(lens[b]) // block):] = -1
+    bt[2, 1] = -1
+    case = dict(q=rng.standard_normal((rows, 14, 64)).astype(np.float32),
+                block_tables=bt, seq_lens=lens)
+    shape = (KV, N, block, 64)
+    if quantized:
+        case["k_pages"] = rng.integers(-127, 128, shape).astype(np.int8)
+        case["v_pages"] = rng.integers(-127, 128, shape).astype(np.int8)
+        case["k_scales"] = rng.uniform(0.1, 3.0, (KV, N)).astype(np.float32)
+        case["v_scales"] = rng.uniform(0.1, 3.0, (KV, N)).astype(np.float32)
+    else:
+        case["k_pages"] = rng.standard_normal(shape).astype(np.float32)
+        case["v_pages"] = rng.standard_normal(shape).astype(np.float32)
+    return case
+
+
+def _split_check(case, device, n_splits):
+    args, kw = _on(case, device)
+    before = paged_decode_attention.launches
+    got = launch_paged(*args, **kw, n_splits=n_splits)
+    torch.cuda.synchronize()
+    assert paged_decode_attention.launches == before + 1
+    torch.testing.assert_close(
+        got, paged_decode_attention_reference(*args, **kw), **TOL)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", (1, 2, 3, 5))
+@pytest.mark.parametrize("quantized", (False, True), ids=("fp32", "int8"))
+@pytest.mark.parametrize("r", (1, 7, 16))
+@pytest.mark.parametrize("D", (16, 64, 128))
+def test_kernel_split_counts_match_plain_version(cuda_device, quantized, r,
+                                                 D, n_splits):
+    """make_case's rows (seq_len-0 rows on real and -1 pages, a -1 entry
+    inside a range, a row of only -1 pages) at 1 to nb (5) splits."""
+    case = make_case(7 * r + D, r=r, D=D, block=8, quantized=quantized)
+    _split_check(case, cuda_device, n_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_splits", (None, 1, 2, 3, 16, 32))
+@pytest.mark.parametrize("quantized", (False, True), ids=("fp32", "int8"))
+@pytest.mark.parametrize("rows", (8, 64))
+def test_kernel_at_serving_shapes_and_splits(cuda_device, quantized, rows,
+                                             n_splits):
+    """The serving shapes (block 64, 32 pages a row) at the wrapper's rule
+    (None) and forced split counts, up to one page per split."""
+    case = serving_rows(rows, quantized=quantized, seed=rows)
+    if n_splits is None:
+        args, kw = _on(case, cuda_device)
+        got = paged_decode_attention(*args, **kw)
+        torch.testing.assert_close(
+            got, paged_decode_attention_reference(*args, **kw), **TOL)
+    else:
+        _split_check(case, cuda_device, n_splits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("block", (24, 128))
+def test_kernel_takes_pages_of_any_length(cuda_device, block):
+    """Pages shorter than a 64-slot tile and not dividing it (24), and
+    longer than one tile (128)."""
+    case = make_case(block, r=2, D=32, block=block, quantized=False)
+    for n in (1, 3):
+        _split_check(case, cuda_device, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", (False, True), ids=("fp32", "int8"))
+def test_split_kernel_is_deterministic(cuda_device, quantized):
+    """The splits merge in split order: two calls are bitwise equal."""
+    args, kw = _on(serving_rows(8, quantized=quantized), cuda_device)
+    first = paged_decode_attention(*args, **kw)
+    for _ in range(3):
+        assert torch.equal(paged_decode_attention(*args, **kw), first)

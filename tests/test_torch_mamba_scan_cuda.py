@@ -11,7 +11,11 @@ The cases: tests/test_kernels.py's three shapes, a ragged channel count
 (not a multiple of the kernel's 128-channel block), nonzero initial states,
 d_state 32 and 64, and falcon-mamba-7b's width (8 sequences, d_inner 8192,
 d_state 16) at T = 1 from a carried state (a decode step) and at T = 512
-(the prefill); h_last written over h0, as a decode step writes it.  Both
+(the prefill); h_last written over h0, as a decode step writes it.  For
+the kernel's design: every d_state with its lanes per channel (N / 8) at T
+= 1, 15, 17 and 40 (the tiles are 16 steps), h_last over h0 at every
+d_state with 16-byte and 4-byte copies, and bitwise-equal repeated
+calls.  Both
 ``y`` and ``h_last`` are compared, float32, atol =
 rtol = 1e-4 (tests/test_kernels.py's tolerance for this kernel).  The
 case functions below also feed tests/test_torch_mamba_scan.py (the plain
@@ -154,3 +158,43 @@ def test_scan_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
                                                            device=cuda_device))
     with pytest.raises(ValueError):                      # h0 of another shape
         mamba1_scan(c["x"], c["dt"], c["Bt"], c["Ct"], c["A"], c["h0"][:, :64])
+
+
+# lanes per channel: N / 8 (1, 2, 4, 8); tiles of 16 steps
+STATE_CASES = [(N, T) for N in (8, 16, 32, 64) for T in (1, 15, 17, 40)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,T", STATE_CASES,
+                         ids=[f"N{N}-T{T}" for N, T in STATE_CASES])
+def test_scan_kernel_each_state_size(cuda_device, N, T):
+    """Each d_state with its lanes per channel, at T = 1 and at T on
+    either side of the 16-step tile and not a multiple of it; a channel
+    count that is not a multiple of any block's (200), from a state."""
+    _check_against_plain(to_torch(scan_case(2, T, 200, N, True),
+                                  cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", (8, 16, 32, 64))
+@pytest.mark.parametrize("Di", (256, 130))
+def test_scan_kernel_state_in_place_each_size(cuda_device, N, Di):
+    """h_last written over h0 at every d_state, with 16-byte rows (Di 256)
+    and with 4-byte copies (Di 130 is not a multiple of 4)."""
+    c = to_torch(scan_case(3, 1, Di, N, True, seed=5), cuda_device)
+    y_want, h_want = run(mamba1_scan_reference, c)
+    h0 = c["h0"].clone()
+    y, h = mamba1_scan(c["x"], c["dt"], c["Bt"], c["Ct"], c["A"], h0, h0)
+    torch.cuda.synchronize()
+    assert h is h0
+    torch.testing.assert_close(y, y_want, **TOL)
+    torch.testing.assert_close(h, h_want, **TOL)
+
+
+@pytest.mark.cuda
+def test_scan_kernel_repeats_bitwise(cuda_device):
+    c = falcon_case(cuda_device, 40, with_h0=True)
+    first = run(mamba1_scan, c)
+    for _ in range(2):
+        for a, b in zip(run(mamba1_scan, c), first):
+            assert torch.equal(a, b)

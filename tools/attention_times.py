@@ -1,12 +1,16 @@
 #!/usr/bin/env python3
-"""Time B3 (flash attention) and B2 (decode attention) on the card.
+"""Time B3 (flash attention), B2 (decode attention), B1 (paged decode
+attention) and B4 (the Mamba-1 scan) on the card.
 
     python tools/attention_times.py [--root CHECKOUT] [--tag NAME] [--splits]
 
 Runs the port's kernels from the checkout at CHECKOUT (default: this one)
-at ``chip_smoke.py``'s phase-10 shapes, bf16, and prints for each the
-time per call by CUDA events over 20 back-to-back calls (the wrapper's
-host work between launches included) and the device time per call from
+at ``chip_smoke.py``'s shapes: B3 and B2 at phase 10's, bf16; B1 at phase
+6's (64 and 8 rows of 32 full pages, qwen2-0.5b's heads, fp32 and int8);
+B4 at phase 15's (falcon-mamba-7b's prefill, 8 x 512 from zero, and one
+decode step, 8 x 1 from a state).  It prints for each the time per call
+by CUDA events over 20 back-to-back calls (the wrapper's host work
+between launches included) and the device time per call from
 ``torch.profiler`` (left out), with the largest error against the plain
 version.  Both times come from this checkout's ``chip_smoke.py``
 (``cuda_ms`` and ``_device_ms_per_call``), whatever CHECKOUT is, so that
@@ -14,8 +18,9 @@ two checkouts are timed alike.  ``--splits`` also times B2 at forced
 split counts (``None`` is the wrapper's rule; CHECKOUT must have the
 split kernel).  To compare two checkouts, unpack one beside the other
 (``git archive``) and run both, in turns, on one card.  Needs a CUDA
-device; the CHECKOUT's ``tests/test_torch_attention_cuda.py`` builds the
-inputs.
+device; the CHECKOUT's ``tests/test_torch_attention_cuda.py`` and
+``tests/test_torch_mamba_scan_cuda.py`` build the inputs of B3, B2 and B4,
+this checkout's ``chip_smoke.serving_case`` those of B1.
 """
 from __future__ import annotations
 
@@ -28,6 +33,8 @@ HERE = Path(__file__).resolve().parents[1]
 FLASH_SHAPES = ((8, 512, 14, 2, 64), (1, 4096, 14, 2, 64),
                 (8, 512, 32, 32, 64), (8, 512, 16, 16, 128))
 DECODE_SHAPES = ((64, 4096), (8, 544))
+PAGED_ROWS = (64, 8)
+SCAN_SHAPES = ((512, False), (1, True))
 SPLIT_SHAPES = {(64, 4096): (None, 1, 2, 3, 9, 16),
                 (8, 544): (None, 1, 3, 9),
                 (1, 8192): (None, 16, 64, 128)}
@@ -83,6 +90,25 @@ def main() -> None:
                         else cases.run_decode_splits(c, n))
             report(f"B2 B{B} S{Sc}" + (f" splits {n}" if args.splits else ""),
                    fn, lambda: cases.run_decode(decode_attention_reference, c))
+
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention, paged_decode_attention_reference)
+    for rows in PAGED_ROWS:
+        for quantized in (False, True):
+            pa, kw = smoke.to_device(smoke.serving_case(
+                quantized, dev, ragged=False, rows=rows), dev)
+            report(f"B1 {'int8' if quantized else 'fp32'} B{rows} pages 32",
+                   lambda: paged_decode_attention(*pa, **kw),
+                   lambda: paged_decode_attention_reference(*pa, **kw))
+
+    import test_torch_mamba_scan_cuda as scan_cases
+    from repro_torch.kernels.mamba_scan import (
+        mamba1_scan, mamba1_scan_reference)
+    for T, with_h0 in SCAN_SHAPES:
+        c = scan_cases.falcon_case(dev, T, with_h0=with_h0, seed=1)
+        report(f"B4 B8 T{T} Di8192 N16" + (" from h0" if with_h0 else ""),
+               lambda: scan_cases.run(mamba1_scan, c)[0],
+               lambda: scan_cases.run(mamba1_scan_reference, c)[0])
 
 
 if __name__ == "__main__":
