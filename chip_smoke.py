@@ -107,7 +107,39 @@ fails:
    ``max_abs_err``), then timed beside its plain version, with its bound
    (bytes over 3.35 TB/s or float32 operations over 67 TFLOP/s) and its
    device time per call (phase 10's helper); no one PyTorch call computes
-   the scan, so its ``library_ms`` is null.
+   the scan, so its ``library_ms`` is null;
+16. hybrid serve: ``serve --backend hybrid --prefill-backend torch
+   --decode-backend cpu`` (prefill on the card, decode on the CPU, pages
+   handed across), in fp32 and with ``--kv-dtype int8`` (the decode tier
+   int8); every request completes, B1 is launched (by the prefill tier),
+   and the handoff counters are printed;
+17. speculative serve: ``serve --backend torch --speculative-k 4
+   --draft-backend cpu`` (target on the card, draft on the CPU), in fp32
+   and with ``--kv-dtype int8``; every request completes, B1 is launched
+   (by the batched verify), and the drafted and accepted counts are
+   printed;
+18. fleet serve: ``serve --backend torch --replicas 2 --tp 1 --routing
+   affinity``; every request completes, both replicas launch B1, and the
+   per-replica request counts are printed;
+19. token identity of the compositions at phase 5's small width: phase
+   5's plans through ``TorchBackend`` on the card and on the CPU, the
+   hybrid (torch on the card -> cpu), speculative decode with the target
+   on the card and a cpu draft (k 3; and a draft drawn from another seed,
+   so that verify rejects) and speculative decode on the CPU: the streams
+   must all be equal, and in int8 the hybrid with the card's prefill tier
+   must equal the all-CPU hybrid; then at the serve runs' widths
+   (qwen2-0.5b's heads and vocab, block 64, 8 requests of 512 prompt
+   tokens), speculative decode (k 4, draft and target on the card) must
+   equal stepwise decode on the card, though B1 splits a verify call and
+   a decode step differently;
+20. B1 at speculative verify's call shape: 8 requests x 5 rows (k 4)
+   sharing their tables of 32 pages, seq_lens start+1 .. start+5, at
+   qwen2-0.5b's heads (block 64, the 256-page pool of phase 6's 8 rows),
+   fp32 and int8: held to the plain version and to the split rule
+   (1e-5), then timed as phase 6 times B1, with SDPA over the gathered
+   K/V under a length mask for fp32; the log also gives the largest
+   difference between the rule's split count at 40 rows and the count a
+   decode step of the same 8 requests takes.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -142,13 +174,20 @@ def log(msg: str) -> None:
     print(f"[smoke] {msg}", flush=True)
 
 
-# -- phase 3: the serving path, in subprocesses ------------------------------
+# -- phases 3 and 16-18: the serving path, in subprocesses --------------------
 
-def serve(*extra: str) -> dict:
-    """Run the port's serve CLI at qwen2-0.5b widths; returns completion
-    and the workers' summed kernel launches."""
+COMPOSITE = ("handoffs", "handoff_blocks", "spec_steps", "drafted",
+             "accepted")
+
+
+def serve(*extra: str, tp: int = 2) -> dict:
+    """Run the port's serve CLI at qwen2-0.5b widths, ``extra`` naming the
+    backend and its options; returns completion, the workers' summed
+    kernel launches (each replica's too in fleet mode, and each must be
+    above 0), TTFT p50, wall time, the composite backends' counters summed
+    over the workers and the fleet's per-replica request counts."""
     cmd = [sys.executable, "-m", "repro_torch.launch.serve",
-           "--backend", "torch", "--arch", "qwen2-0.5b", "--tp", "2",
+           "--arch", "qwen2-0.5b", "--tp", str(tp),
            "--cores", "6", "--requests", "8", "--rps", "16",
            "--words", "400", "--max-new", "16", *extra]
     env = dict(os.environ, PYTHONPATH=str(SRC))
@@ -165,21 +204,36 @@ def serve(*extra: str) -> dict:
     wall = time.perf_counter() - t0
     for line in out.splitlines():
         log(f"  {line}")
+    what = " ".join(extra)
     if proc.returncode != 0:
-        fail(f"serve {' '.join(extra)} exited {proc.returncode}")
-    done = re.search(r"\[serve\] completed (\d+)/(\d+)", out)
-    launches = re.search(r"kernel_launches=(\d+)", out)
+        fail(f"serve {what} exited {proc.returncode}")
+    done = re.search(r"\[(?:serve|fleet)\] completed (\d+)/(\d+)", out)
+    launches = [int(n) for n in re.findall(r"kernel_launches=(\d+)", out)]
     if not done or not launches:
         fail("serve printed no completion or launch count")
     n_done, n_req = int(done.group(1)), int(done.group(2))
     if n_done != n_req:
-        fail(f"serve {' '.join(extra)} completed {n_done}/{n_req}")
-    n_launch = int(launches.group(1))
-    if n_launch <= 0:
-        fail(f"serve {' '.join(extra)}: the kernel was never launched")
-    log(f"serve {' '.join(extra)}: {n_done}/{n_req} requests, "
-        f"{n_launch} kernel launches, {wall:.1f} s wall")
-    return {"completed": n_done, "launches": n_launch, "wall_s": wall}
+        fail(f"serve {what} completed {n_done}/{n_req}")
+    if min(launches) <= 0:
+        fail(f"serve {what}: the kernel was never launched "
+             f"(per replica: {launches})")
+    ttft = re.search(r"TTFT p50=([\d.]+)ms", out)
+    counters = {}
+    for key, n in re.findall(rf"\b({'|'.join(COMPOSITE)})=(\d+)", out):
+        counters[key] = counters.get(key, 0) + int(n)
+    per_replica = re.search(r"per-replica requests=\[([\d, ]+)\]", out)
+    run = {"completed": n_done, "launches": sum(launches),
+           "replica_launches": launches, "wall_s": wall,
+           "ttft_p50_ms": float(ttft.group(1)) if ttft else None,
+           "counters": counters,
+           "per_replica": ([int(n) for n in per_replica.group(1).split(",")]
+                           if per_replica else None)}
+    log(f"serve {what}: {n_done}/{n_req} requests, {sum(launches)} kernel "
+        f"launches {launches}, TTFT p50 {run['ttft_p50_ms']} ms, "
+        f"{wall:.1f} s wall, counters {counters}"
+        + (f", per-replica requests {run['per_replica']}"
+           if per_replica else ""))
+    return run
 
 
 def main() -> None:
@@ -212,8 +266,29 @@ def main() -> None:
             log(f"  ptxas: {line.strip()}")
 
     # 3. serving, before this process touches the card's memory
-    fp32_run = serve("--multi-step", "4")
-    int8_run = serve("--kv-dtype", "int8")
+    fp32_run = serve("--backend", "torch", "--multi-step", "4")
+    int8_run = serve("--backend", "torch", "--kv-dtype", "int8")
+    # 16.-18. the serving compositions, also before this process touches
+    # the card's memory
+    t_comp = time.perf_counter()
+    hybrid = ("--backend", "hybrid", "--prefill-backend", "torch",
+              "--decode-backend", "cpu")
+    for run in (serve(*hybrid), serve(*hybrid, "--kv-dtype", "int8")):
+        if run["counters"].get("handoffs", 0) < 2 * 8:
+            fail(f"hybrid serve handed off {run['counters']}, want each "
+                 f"of 8 requests on each of 2 workers")
+    speculative = ("--backend", "torch", "--speculative-k", "4",
+                   "--draft-backend", "cpu")
+    spec_runs = {"float32": serve(*speculative),
+                 "int8": serve(*speculative, "--kv-dtype", "int8")}
+    for run in spec_runs.values():
+        if run["counters"].get("spec_steps", 0) <= 0:
+            fail("speculative serve ran no speculative step")
+    fleet = serve("--backend", "torch", "--replicas", "2", "--routing",
+                  "affinity", tp=1)
+    if len(fleet["replica_launches"]) != 2:
+        fail(f"fleet serve reported {fleet['replica_launches']} replicas")
+    t_comp = time.perf_counter() - t_comp
 
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention as kernel,
@@ -245,11 +320,16 @@ def main() -> None:
 
     # 5. token identity on the card and on the CPU, at small width
     token_identity()
+    # 19. the compositions' streams at the same width
+    composition_identity()
 
     # 6. times at the serving shapes
     entries = [time_kernel(quantized, dev, run["launches"], worst, rows)
                for rows in (64, 8)
                for quantized, run in ((False, fp32_run), (True, int8_run))]
+    # 20. B1 at speculative verify's call shape
+    entries += [time_verify(quantized, dev, spec_runs[key]["launches"])
+                for quantized, key in ((False, "float32"), (True, "int8"))]
 
     # 7.-10. the model path of the attention-only archs, B3 and B2
     from repro_torch.kernels.decode_attention import decode_attention_bhd
@@ -280,8 +360,9 @@ def main() -> None:
     model_token_identity(dev, "zamba2-1.2b", n_layers=8)
     entries += time_scan(dev, ssm_launches["scan"])
     now = time.perf_counter()
-    log(f"phases 1-10 took {t_ssm - t_start:.1f} s, phases 11-15 "
-        f"{now - t_ssm:.1f} s")
+    log(f"phases 1-10 and 19-20 took {t_ssm - t_start - t_comp:.1f} s, "
+        f"phases 11-15 {now - t_ssm:.1f} s, the serve runs of phases "
+        f"16-18 {t_comp:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -410,57 +491,149 @@ def paged_splits_vs_plain(dev, worst: dict) -> None:
         f"calls; atol = rtol = 1e-5)")
 
 
-# -- phase 5 ---------------------------------------------------------------
+# -- phases 5 and 19 -------------------------------------------------------
+
+_BASE = dict(max_num_seqs=8, max_tokens_per_step=64, prefill_chunk=16,
+             block_size=8)
+TOKEN_RUNS = {
+    "k1": (dict(_BASE, enable_prefix_cache=True, kv_capacity_tokens=512),
+           [(21, 3, 1), (40, 5, 2), (21, 2, 1), (9, 4, 3)]),
+    "k4_swap": (dict(_BASE, enable_prefix_cache=False,
+                     kv_capacity_tokens=96, preemption_policy="swap",
+                     swap_capacity_tokens=256, max_steps_per_dispatch=4),
+                [(40, 24, 1), (37, 24, 2)]),
+}
+
+
+def _drive_plans(cfg_kw: dict, specs, make) -> tuple:
+    """Drive ``specs`` (prompt length, max new tokens, token stream)
+    through the port's scheduler and ``make(cfg)``'s backend to the end;
+    returns the token streams, the backend and the speculative plans."""
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
+    cfg = SchedulerConfig(**cfg_kw)
+    sched = Scheduler(cfg)
+    be = make(cfg)
+    reqs = []
+    for i, (n, max_new, stream) in enumerate(specs):
+        r = Request(text="", max_new_tokens=max_new, req_id=i)
+        r.prompt_tokens = [3 + (((stream << 10) + j) % 100)
+                           for j in range(n)]
+        sched.add_request(r)
+        reqs.append(r)
+    step = n_spec = 0
+    while sched.has_work and step < 500:
+        plan = sched.schedule()
+        if plan is None:
+            break
+        step += 1
+        n_spec += plan.speculative
+        for req in sched.complete_step(plan, float(step), be.execute(plan)):
+            be.release(req.req_id)
+    return [list(r.generated) for r in reqs], be, n_spec
+
+
+def _surrogate_kw(cfg, **extra) -> dict:
+    return dict(block_size=cfg.block_size, num_blocks=cfg.num_kv_blocks,
+                num_swap_blocks=cfg.num_swap_blocks,
+                copy_streams=cfg.copy_streams, vocab=128, **extra)
+
 
 def token_identity() -> None:
     import torch
 
     from repro_torch.backend.torch_backend import TorchBackend
-    from repro_torch.serving.request import Request
-    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
-    base = dict(max_num_seqs=8, max_tokens_per_step=64, prefill_chunk=16,
-                block_size=8)
-    runs = {
-        "k1": (dict(base, enable_prefix_cache=True, kv_capacity_tokens=512),
-               [(21, 3, 1), (40, 5, 2), (21, 2, 1), (9, 4, 3)]),
-        "k4_swap": (dict(base, enable_prefix_cache=False,
-                         kv_capacity_tokens=96, preemption_policy="swap",
-                         swap_capacity_tokens=256,
-                         max_steps_per_dispatch=4),
-                    [(40, 24, 1), (37, 24, 2)]),
-    }
-    for name, (cfg_kw, specs) in runs.items():
+    for name, (cfg_kw, specs) in TOKEN_RUNS.items():
         streams = {}
         for device in ("cuda", "cpu"):
-            cfg = SchedulerConfig(**cfg_kw)
-            sched = Scheduler(cfg)
-            be = TorchBackend(block_size=cfg.block_size,
-                              num_blocks=cfg.num_kv_blocks,
-                              num_swap_blocks=cfg.num_swap_blocks,
-                              vocab=128, device=device)
-            reqs = []
-            for i, (n, max_new, stream) in enumerate(specs):
-                r = Request(text="", max_new_tokens=max_new, req_id=i)
-                r.prompt_tokens = [3 + (((stream << 10) + j) % 100)
-                                   for j in range(n)]
-                sched.add_request(r)
-                reqs.append(r)
-            step = 0
-            while sched.has_work and step < 500:
-                plan = sched.schedule()
-                if plan is None:
-                    break
-                step += 1
-                for req in sched.complete_step(plan, float(step),
-                                               be.execute(plan)):
-                    be.release(req.req_id)
-            streams[device] = [list(r.generated) for r in reqs]
+            streams[device], _, _ = _drive_plans(
+                cfg_kw, specs, lambda cfg: TorchBackend(
+                    device=device, **_surrogate_kw(cfg)))
         torch.cuda.synchronize()
         if streams["cuda"] != streams["cpu"]:
             fail(f"token streams differ between cuda and cpu ({name}): "
                  f"{streams['cuda']} vs {streams['cpu']}")
         log(f"token identity {name}: cuda == cpu over "
             f"{sum(map(len, streams['cuda']))} tokens")
+
+
+def composition_identity() -> None:
+    """Phase 19: phase 5's plans through every composition; speculative
+    runs take speculative_k 3 (their plans differ, their streams may
+    not)."""
+    from repro_torch.backend.cpu_decode import CpuDecodeBackend
+    from repro_torch.backend.hybrid import HybridBackend
+    from repro_torch.backend.torch_backend import TorchBackend
+    from repro_torch.spec import SpeculativeBackend
+
+    def torch_leaf(device, kv_dtype="float32"):
+        return lambda cfg: TorchBackend(
+            device=device, **_surrogate_kw(cfg, kv_dtype=kv_dtype))
+
+    def hybrid(device, kv_dtype="float32"):
+        return lambda cfg: HybridBackend(
+            TorchBackend(device=device, **_surrogate_kw(cfg)),
+            CpuDecodeBackend(**_surrogate_kw(cfg, kv_dtype=kv_dtype)),
+            copy_streams=cfg.copy_streams)
+
+    def speculative(device, draft_seed=0):
+        return lambda cfg: SpeculativeBackend(
+            CpuDecodeBackend(**_surrogate_kw(cfg, seed=draft_seed)),
+            TorchBackend(device=device, **_surrogate_kw(cfg)))
+
+    groups = {
+        "float32": {"torch cuda": (0, torch_leaf("cuda")),
+                    "torch cpu": (0, torch_leaf("cpu")),
+                    "hybrid cuda->cpu": (0, hybrid("cuda")),
+                    "spec k3 cuda<-cpu": (3, speculative("cuda")),
+                    # a draft with other weights: verify rejects drafts
+                    "spec k3 cuda<-cpu other draft": (
+                        3, speculative("cuda", draft_seed=7)),
+                    "spec k3 cpu<-cpu": (3, speculative("cpu"))},
+        "int8": {"hybrid cuda->cpu int8": (0, hybrid("cuda", "int8")),
+                 "hybrid cpu->cpu int8": (0, hybrid("cpu", "int8"))},
+    }
+    for run, (cfg_kw, specs) in TOKEN_RUNS.items():
+        for group, builds in groups.items():
+            streams, notes = {}, []
+            for name, (spec_k, make) in builds.items():
+                streams[name], be, n_spec = _drive_plans(
+                    dict(cfg_kw, speculative_k=spec_k), specs, make)
+                if spec_k:
+                    if n_spec == 0:
+                        fail(f"{name} ({run}): no speculative plan fired")
+                    notes.append(f"{name}: {n_spec} verify plans, "
+                                 f"{be.n_accepted}/{be.n_drafted} drafts "
+                                 f"accepted")
+                if hasattr(be, "n_handoffs"):
+                    notes.append(f"{name}: {be.n_handoffs} handoffs")
+            first = next(iter(streams.values()))
+            for name, got in streams.items():
+                if got != first:
+                    fail(f"composition streams differ ({run}, {group}): "
+                         f"{name} {got} vs {next(iter(streams))} {first}")
+            log(f"composition identity {run} {group}: "
+                + " == ".join(streams) + f" over {sum(map(len, first))} "
+                f"tokens; " + "; ".join(notes))
+    spec_identity_wide()
+
+
+def spec_identity_wide() -> None:
+    """Phase 19 at the serve runs' widths (tests/test_torch_kernels_cuda.py's
+    ``serve_width_streams``): speculative decode must equal stepwise decode
+    on the card where B1 splits a verify call and a decode step
+    differently."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_kernels_cuda as cases
+    stepwise, spec, n_spec, be = cases.serve_width_streams("cuda")
+    if n_spec == 0:
+        fail("no speculative plan fired at the serve runs' widths")
+    if spec != stepwise:
+        fail(f"speculative and stepwise streams differ at the serve runs' "
+             f"widths: {spec} vs {stepwise}")
+    log(f"speculative == stepwise at qwen2-0.5b widths on the card over "
+        f"{sum(map(len, spec))} tokens: {n_spec} verify plans, "
+        f"{be.n_accepted}/{be.n_drafted} drafts accepted")
 
 
 # -- phase 6 ---------------------------------------------------------------
@@ -483,22 +656,26 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound(args, kw) -> tuple:
     """Least time for this call on the card: each input byte the rows
     need read once (the K/V pages up to each row's length, all pages for
-    a row with no valid slot, their scales, q, tables, lengths) and the
-    output written once, over 3.35 TB/s; against 4*D float32 operations
-    per (query head, slot) for QK^T and PV, over 67 TFLOP/s."""
+    a row with no valid slot, a page that several rows share once, their
+    scales, q, tables, lengths) and the output written once, over 3.35
+    TB/s; against 4*D float32 operations per (query head, slot) of each
+    row for QK^T and PV, over 67 TFLOP/s."""
     q, k_pages, _, bt, sl = args
     B, H, D = q.shape
     KV, N, block, _ = k_pages.shape
-    pages = 0
-    for n_tok in sl.tolist():
+    walked, read = 0, set()
+    for row, n_tok in zip(bt.tolist(), sl.tolist()):
         need = min(math.ceil(n_tok / block), bt.shape[1])
-        pages += need if n_tok > 0 else bt.shape[1]
+        need = need if n_tok > 0 else bt.shape[1]
+        walked += need
+        read.update(max(p, 0) for p in row[:need])
+    pages = len(read)
     elt = k_pages.element_size()
     nbytes = (2 * KV * pages * block * D * elt          # K and V pages
               + (2 * KV * pages * 4 if kw else 0)       # their scales
               + 2 * q.numel() * 4                       # q in, out
               + bt.numel() * 4 + sl.numel() * 4)
-    flops = 4 * (H // KV) * KV * pages * block * D      # QK^T and PV
+    flops = 4 * (H // KV) * KV * walked * block * D     # QK^T and PV
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
@@ -566,6 +743,88 @@ def time_kernel(quantized: bool, dev, launches: int, worst: dict,
         f"ms ({bound_by}, {nbytes} B), achieved "
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time per call "
         f"(profiler): kernel {dev_ms}, SDPA {sdpa_dev}")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/paged_decode_attention.cu",
+            "replaces": "src/repro/kernels/paged_decode_attention.py:164",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+# -- phase 20: B1 at speculative verify's call shape ---------------------------
+
+def time_verify(quantized: bool, dev, launches: int) -> dict:
+    """B1 on ``verify_rows`` (8 requests x 5 rows on shared tables, seq_lens
+    start+1 .. start+5, qwen2-0.5b's heads, 32 pages of 64 a table): held
+    to the plain version and to the split rule at the rule's count, then
+    timed as ``time_kernel`` times it, beside SDPA over the gathered K/V
+    with a length mask (fp32).  Also the largest difference between the
+    rule's split count here and the count a decode step of the same 8
+    requests takes (one row each), which a verify and a stepwise decode
+    of one token meet."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.paged_decode_attention import (
+        _launch, paged_decode_attention as kernel,
+        paged_decode_attention_reference as plain,
+        paged_decode_attention_split_reference as split_plain)
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_kernels_cuda as cases
+    args, kw = to_device(cases.verify_rows(8, 4, quantized=quantized), dev)
+    q, k_pages, v_pages, bt, sl = args
+    B, H, D = q.shape
+    KV, _, block, _ = k_pages.shape
+    key = "int8" if quantized else "float32"
+    n_splits = cases.rule_splits(args, quantized)
+    # a decode step of the same 8 requests: one row each, same tables
+    step_splits = cases.rule_splits([q[::5], k_pages, v_pages, bt[::5],
+                                     sl[::5]], quantized)
+    got = kernel(*args, **kw)
+    want = plain(*args, **kw)
+    err = (got - want).abs().max().item()
+    by_rule = split_plain(*args, **kw, n_splits=n_splits)
+    if not (torch.allclose(got, want, **TOL)
+            and torch.allclose(got, by_rule, **TOL)):
+        fail(f"kernel disagrees with its plain version or its split rule at "
+             f"the verify shape ({key}): max abs err {err:.3g}, against the "
+             f"rule {(got - by_rule).abs().max().item():.3g}")
+    at_step = _launch(*args, **kw, n_splits=step_splits)
+    split_diff = (got - at_step).abs().max().item()
+    ms, plain_ms = _time_pair(lambda: kernel(*args, **kw),
+                              lambda: plain(*args, **kw))
+    bound_ms, bound_by, nbytes = bound(args, kw)
+    library_ms = sdpa_dev = None
+    if not quantized:
+        # yardstick only, never called by the port: SDPA over each row's
+        # gathered K/V, masked past its length
+        idx = bt.long()
+        kc = k_pages[:, idx].reshape(KV, B, -1, D).permute(1, 0, 2, 3)
+        vc = v_pages[:, idx].reshape(KV, B, -1, D).permute(1, 0, 2, 3)
+        kc = kc.repeat_interleave(H // KV, dim=1).contiguous()
+        vc = vc.repeat_interleave(H // KV, dim=1).contiguous()
+        mask = (torch.arange(kc.shape[2], device=dev)[None, :]
+                < sl[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, kc, vc, attn_mask=mask)
+        if not torch.allclose(sdpa()[:, :, 0], want, atol=1e-3, rtol=1e-3):
+            fail("SDPA yardstick does not compute the kernel's function at "
+                 "the verify shape")
+        library_ms = cuda_ms(sdpa)
+        sdpa_dev = _device_ms_per_call(sdpa)
+    dev_ms = _device_ms_per_call(lambda: kernel(*args, **kw))
+    name = "paged_decode_attention_" + ("i8" if quantized else "f32") + (
+        "_verify_b8x5")
+    log(f"{name}: {B} rows (8 requests x 5, k 4) H={H} KV={KV} D={D} "
+        f"block={block} pages/row={bt.shape[1]}, {n_splits} splits (a decode "
+        f"step of the same 8 requests: {step_splits}; outputs differ by up "
+        f"to {split_diff:.3g} between the two counts): max abs err "
+        f"{err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+        f"{library_ms} ms, bound {bound_ms:.4f} ms ({bound_by}, {nbytes} B), "
+        f"achieved {nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time per "
+        f"call (profiler): kernel {dev_ms}, SDPA {sdpa_dev}")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/paged_decode_attention.cu",
             "replaces": "src/repro/kernels/paged_decode_attention.py:164",

@@ -29,7 +29,7 @@ What differs: the pools live on the device, tables are not remapped to a
 compact pool, and a step's query projection and greedy sampling are
 batched on the device with one host read of the sampled ids.  Page
 ``num_blocks`` is a scratch page that only masked rows of a macro-plan
-write to.  Speculative verify plans are not ported yet (ROADMAP.md).
+write to.
 """
 from __future__ import annotations
 
@@ -321,11 +321,9 @@ class PagedSurrogateBackend:
             else:
                 self._copy_back(pairs)
 
-        if plan.speculative:
-            raise NotImplementedError(
-                "speculative verify plans are not ported yet "
-                "(ROADMAP.md, Queue 1: speculative decode)")
-        if plan.num_steps > 1:
+        # a speculative verify plan (docs/spec_decode.md) or a k-step
+        # macro-plan (docs/multi_step.md) returns a per-step token stream
+        if plan.speculative or plan.num_steps > 1:
             return self._execute_multi(plan, tables, t0)
 
         rows = self._prefill_rows(plan, tables)
@@ -362,10 +360,11 @@ class PagedSurrogateBackend:
             rows.append((rid, toks[-1], start + n, table))
         return rows
 
-    def _sample_rows(self, rows: List[tuple]) -> Dict[int, int]:
-        """One batched attend + greedy sample over (rid, tok, seq_len,
-        table) rows: one host-to-device copy of the row data, one read of
-        the sampled ids."""
+    def _sample_rows(self, rows: List[tuple]) -> Dict:
+        """One batched attend + greedy sample over (key, tok, seq_len,
+        table) rows, returned by key (a request id, or a (request,
+        position) pair for a verify row): one host-to-device copy of the
+        row data, one read of the sampled ids."""
         if not rows:
             return {}
         nb_max = max(max(len(t) for _, _, _, t in rows), 1)
@@ -386,8 +385,11 @@ class PagedSurrogateBackend:
 
     def _execute_multi(self, plan: StepPlan,
                        tables: Dict[int, List[int]], t0: float) -> StepResult:
-        """Drive the k-step decode loop for a macro-plan and package its
-        per-step token stream (``_decode_multi`` is the execution seam)."""
+        """Run a macro-plan's k-step decode loop (``_decode_multi``, the
+        execution seam) or verify a speculative plan's drafts
+        (``_verify_multi``), and package the per-step token stream; the
+        scheduler's macro consumption and ``_rollback_unused`` then reclaim
+        a rejected suffix's KV."""
         tokens: Dict[int, int] = self._sample_rows(
             self._prefill_rows(plan, tables))     # per-tier macro prefill
         rids = list(plan.decode)
@@ -397,8 +399,16 @@ class PagedSurrogateBackend:
         budgets = {rid: plan.decode_steps.get(rid, plan.num_steps)
                    for rid in rids}
         eos = {rid: plan.eos_tokens.get(rid) for rid in rids}
-        steps = self._decode_multi(rids, tbls, start, first, budgets, eos,
-                                   plan.num_steps)
+        if plan.speculative:
+            # plan.draft_tokens: installed worker-side by
+            # repro_torch.spec.SpeculativeBackend
+            drafts = {rid: list(plan.draft_tokens.get(rid, ()))
+                      for rid in rids}
+            steps = self._verify_multi(rids, tbls, start, first, budgets,
+                                       eos, drafts)
+        else:
+            steps = self._decode_multi(rids, tbls, start, first, budgets,
+                                       eos, plan.num_steps)
         for row in steps:
             tokens.update(row)
         for rid in rids:
@@ -407,6 +417,43 @@ class PagedSurrogateBackend:
         self._last_wall = time.perf_counter() - t0
         return StepResult(step_id=plan.step_id, tokens=tokens,
                           wall_s=self._last_wall, token_steps=steps)
+
+    # -- speculative verify (docs/spec_decode.md) ------------------------
+
+    def _verify_multi(self, rids: List[int], tables: Dict[int, List[int]],
+                      start: Dict[int, int], first: Dict[int, int],
+                      budgets: Dict[int, int], eos: Dict[int, Optional[int]],
+                      drafts: Dict[int, List[int]]) -> List[Dict[int, int]]:
+        """Batched draft verification.  The inputs of a request are
+        ``[first, d_1, .., d_{b-1}]`` (clipped to its budget b); their K/V
+        is written up front in one ``_write``, then every (request,
+        position i) row attends with seq_len ``start + i + 1`` in one
+        ``_attend``, so row i's argmax is the model's true next token v_i
+        after inputs 0..i, and one host read brings every v_i back.  Greedy
+        acceptance: accept drafts while v_i == d_{i+1}; the emitted stream
+        is the accepted drafts plus the first correction token, truncated
+        at EOS, which is sequential greedy decode whatever the drafts
+        were.  Rejected positions lie past the final tracked seq_len:
+        attention masks them and the scheduler frees their blocks."""
+        inputs = {rid: ([first[rid]] + [int(t) for t in drafts[rid]])
+                  [:max(budgets[rid], 1)] for rid in rids}
+        self._write([(tables[rid], start[rid], inputs[rid]) for rid in rids])
+        verify = self._sample_rows(
+            [((rid, i), tok, start[rid] + i + 1, tables[rid])
+             for rid in rids for i, tok in enumerate(inputs[rid])])
+        steps: List[Dict[int, int]] = []
+        for rid in rids:
+            ins = inputs[rid]
+            for i in range(len(ins)):
+                v = verify[(rid, i)]
+                if len(steps) <= i:
+                    steps.append({})
+                steps[i][rid] = v
+                if eos[rid] is not None and v == eos[rid]:
+                    break                                  # stream ends here
+                if i + 1 >= len(ins) or v != ins[i + 1]:
+                    break                        # v is the correction token
+        return steps
 
     def _decode_multi(self, rids: List[int], tables: Dict[int, List[int]],
                       start: Dict[int, int], first: Dict[int, int],

@@ -15,9 +15,8 @@ paged surrogate on the card (or on the CPU when ``torch_device="cpu"``).
 This is the instrumented system the paper's experiments (Figs 5-13) run on.
 
 Ported from ``src/repro/core/engine.py``: imports rewritten to
-``repro_torch``; ``EngineConfig`` names the torch device and the
-surrogate's arch instead of the hybrid and speculative children, which
-are not ported yet.  Processes fork, so CUDA is touched only by the
+``repro_torch``; ``EngineConfig`` also names the torch device and the
+surrogate's arch.  Processes fork, so CUDA is touched only by the
 workers, after the fork: the owner builds the kernels with nvcc before
 forking and makes no CUDA call.
 """
@@ -52,11 +51,25 @@ class EngineConfig:
     scheduler: SchedulerConfig = SchedulerConfig()
     device: DeviceModel = DeviceModel()
     backend: str = "emulated"     # worker executor (repro_torch.backend)
-    # KV pool precision ("float32" | "int8")
+    # split-phase children when backend == "hybrid" (docs/backends.md):
+    # prefill tier / decode tier leaf backends, and the CPU-tier decode
+    # slowdown applied when the decode child is emulated
+    prefill_backend: str = "emulated"
+    decode_backend: str = "emulated"
+    decode_slowdown: float = 8.0
+    # speculative decode (docs/spec_decode.md): active when
+    # scheduler.speculative_k > 0 — the worker wraps its backend in
+    # repro_torch.spec.SpeculativeBackend with this draft child; an
+    # emulated draft costs cpu_tier(draft_slowdown) and models acceptance
+    # at spec_accept_rate
+    draft_backend: str = ""                 # "" = default for the target
+    draft_slowdown: float = 8.0
+    spec_accept_rate: Optional[float] = None
+    # KV pool precision on the decode tier ("float32" | "int8")
     kv_dtype: str = "float32"
-    # where a "torch" backend runs: "cuda" (the default) or "cpu"
+    # where every "torch" leaf runs: "cuda" (the default) or "cpu"
     torch_device: str = "cuda"
-    # surrogate widths of a "torch" backend (repro_torch.backend.
+    # surrogate widths of the physical leaves (repro_torch.backend.
     # ARCH_WIDTHS); None = the reference's default toy widths
     arch: Optional[str] = None
     ring_slots: int = 8
@@ -105,6 +118,43 @@ class EngineConfig:
                 f"{s.num_kv_blocks}, max_num_seqs={s.max_num_seqs}); set "
                 f"EngineConfig.ring_slot_bytes explicitly")
         return size
+
+    def leaves(self) -> set:
+        """The leaf backends a worker builds: the backend itself or a
+        hybrid's two children, plus a speculative draft (make_backend's
+        default draft included)."""
+        names = ({self.prefill_backend, self.decode_backend}
+                 if self.backend == "hybrid" else {self.backend})
+        if self.scheduler.speculative_k > 0:
+            physical = bool(names & {"torch", "cpu"})
+            names.add(self.draft_backend
+                      or ("cpu" if physical else "emulated"))
+        return names
+
+
+def _kernel_launches(backend) -> int:
+    """Launches of the paged attention kernel in this worker, whichever
+    child of a composite backend ran them (every leaf reads the same
+    per-process count)."""
+    kids = [getattr(backend, a) for a in ("prefill_backend", "decode_backend",
+                                          "target", "draft")
+            if hasattr(backend, a)]
+    return max([getattr(backend, "kernel_launches", 0)]
+               + [_kernel_launches(k) for k in kids])
+
+
+COMPOSITE_COUNTERS = ("n_handoffs", "n_handoff_blocks", "n_spec_steps",
+                      "n_drafted", "n_accepted")
+
+
+def _composite_counters(backend) -> Dict[str, int]:
+    """A hybrid's handoff counts and a speculative wrapper's drafted and
+    accepted tokens (a speculative target may itself be a hybrid)."""
+    out = {k: getattr(backend, k) for k in COMPOSITE_COUNTERS
+           if hasattr(backend, k)}
+    if hasattr(backend, "target"):
+        out.update(_composite_counters(backend.target))
+    return out
 
 
 def _engine_core(cfg: EngineConfig, in_q, out_q, stats_q, ring_name: str,
@@ -250,15 +300,18 @@ def _worker(cfg: EngineConfig, idx: int, ring_name: str, board_name: str,
 
     Execution goes through the pluggable backend seam: "emulated" keeps
     the calibrated device-model sleep, "torch" runs the paged decode
-    kernel for real.  The backend is built here, after the fork, so the
-    worker makes its own CUDA context; the owner and the engine core never
-    touch CUDA."""
+    kernel for real, "cpu" a plain attention on the CPU, and "hybrid" and
+    speculative decode compose them.  The backend is built here, after the
+    fork, so the worker makes its own CUDA context; the owner and the
+    engine core never touch CUDA."""
     t_start = time.perf_counter()
     # deferred: avoids the core<->backend import cycle at package load
     from repro_torch.backend import make_backend
-    if cfg.backend == "torch" and cfg.torch_device == "cpu":
-        # an OpenMP pool inherited from the parent does not survive fork:
-        # one intra-op thread keeps the child off it
+    leaves = cfg.leaves()
+    if "cpu" in leaves or ("torch" in leaves and cfg.torch_device == "cpu"):
+        # a child computes on the CPU: an OpenMP pool inherited from the
+        # parent does not survive fork, and one intra-op thread keeps the
+        # child off it
         import torch
         torch.set_num_threads(1)
     prof = profiling.activate(cfg.profiling, role=f"worker{idx}")
@@ -267,7 +320,13 @@ def _worker(cfg: EngineConfig, idx: int, ring_name: str, board_name: str,
     board = CompletionBoard.attach(board_name, cfg.tp_degree)
     backend = make_backend(cfg.backend, device=cfg.device,
                            scheduler_cfg=cfg.scheduler,
+                           prefill_backend=cfg.prefill_backend,
+                           decode_backend=cfg.decode_backend,
+                           decode_slowdown=cfg.decode_slowdown,
                            kv_dtype=cfg.kv_dtype,
+                           draft_backend=cfg.draft_backend,
+                           draft_slowdown=cfg.draft_slowdown,
+                           spec_accept_rate=cfg.spec_accept_rate,
                            torch_device=cfg.torch_device, arch=cfg.arch)
     # start-up (imports, weights, CUDA context) and per-plan execute wall:
     # what a request that arrives before the worker is ready waits on
@@ -299,7 +358,8 @@ def _worker(cfg: EngineConfig, idx: int, ring_name: str, board_name: str,
         "dequeue_wall": [s.wall_s for s in reader.stats],
         "dequeue_spins": [s.spins for s in reader.stats],
         "trace_events": prof.events if prof is not None else [],
-        "kernel_launches": getattr(backend, "kernel_launches", 0),
+        "kernel_launches": _kernel_launches(backend),
+        "composite": _composite_counters(backend),
         "startup_s": startup_s,
         "execute_wall": execute_wall,
     })
@@ -339,7 +399,7 @@ class ServingSystem:
         # install their own profiler post-fork regardless), but doing it
         # first keeps the owner's t0 earlier than any child event
         self._prof = profiling.activate(self.cfg.profiling, role="api")
-        if self.cfg.backend == "torch" and self.cfg.torch_device != "cpu":
+        if "torch" in self.cfg.leaves() and self.cfg.torch_device != "cpu":
             # build the kernels once, before the fork, so that the workers
             # do not race on the build directory; nvcc only, no CUDA call
             from repro_torch.kernels._build import build_library

@@ -43,8 +43,7 @@ broadcast payload therefore scales with batch size the way a real
 engine's does (paper §V-B).
 
 Copied from ``src/repro/serving/scheduler.py``, with its imports
-rewritten to ``repro_torch``.  ``pressure_stats(with_prefix_summary=True)``
-raises until the fleet router is ported (it builds the summary).
+rewritten to ``repro_torch``.
 """
 from __future__ import annotations
 
@@ -1105,11 +1104,10 @@ class Scheduler:
         time.  With ``with_prefix_summary`` the snapshot carries a bloom
         summary of resident prefix-cache chain keys
         (``repro.fleet.PrefixSummary``) for cache-affinity routing."""
-        if with_prefix_summary:
-            raise NotImplementedError(
-                "prefix summaries need the fleet router, not yet ported "
-                "(ROADMAP.md, Queue 1: fleet and its frontend)")
         summary = None
+        if with_prefix_summary and self.cfg.enable_prefix_cache:
+            from repro_torch.fleet.router import PrefixSummary
+            summary = PrefixSummary.from_keys(self.blocks.cache_keys())
         return PressureStats(
             step_id=self.step_id,
             free_blocks=self.blocks.free_blocks,

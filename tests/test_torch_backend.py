@@ -90,9 +90,17 @@ def lockstep(case: str, max_steps: int = 500):
     sampled tokens at every step; returns both sides' requests, the
     port's scheduler and backend, and the number of macro-plans."""
     cfg_kw, specs, kv_dtype = CASES[case]
+    return drive_lockstep(cfg_kw, specs,
+                          lambda cfg: _pair(cfg, kv_dtype), max_steps)
+
+
+def drive_lockstep(cfg_kw: dict, specs, make_pair, max_steps: int = 500):
+    """``lockstep`` for any pair of backends: ``make_pair(cfg)`` returns
+    the reference's backend and the port's for the port's scheduler
+    config ``cfg``."""
     jsched = JaxScheduler(JaxSchedulerConfig(**cfg_kw))
     tsched = Scheduler(SchedulerConfig(**cfg_kw))
-    jbe, tbe = _pair(tsched.cfg, kv_dtype)
+    jbe, tbe = make_pair(tsched.cfg)
     jreqs, treqs = _requests(JaxRequest, specs), _requests(Request, specs)
     for jr, tr in zip(jreqs, treqs):
         jsched.add_request(jr)
@@ -270,7 +278,7 @@ def test_arch_widths_match_the_reference_config():
     assert w["vocab"] == QWEN2_0_5B.vocab_size
 
 
-def test_make_backend_leaves():
+def test_make_backend_leaves(monkeypatch):
     cfg = SchedulerConfig(**CASES["k1"][0])
     be = make_backend("torch", scheduler_cfg=cfg, torch_device="cpu")
     assert isinstance(be, TorchBackend)
@@ -278,12 +286,22 @@ def test_make_backend_leaves():
     assert (be.n_heads, be.n_kv_heads, be.head_dim, be.vocab) == (4, 2, 16,
                                                                   256)
     assert be.kernel_launches == 0            # CPU tensors: plain version
-    for name in ("cpu", "hybrid"):
-        with pytest.raises(NotImplementedError):
-            make_backend(name, scheduler_cfg=cfg)
+    from repro_torch.backend.cpu_decode import CpuDecodeBackend
+    from repro_torch.backend.hybrid import HybridBackend
+    from repro_torch.spec import SpeculativeBackend
+    monkeypatch.setitem(ARCH_WIDTHS, "narrow", dict(
+        n_heads=6, n_kv_heads=3, head_dim=32, vocab=300))
+    cpu = make_backend("cpu", scheduler_cfg=cfg, arch="narrow")
+    assert isinstance(cpu, CpuDecodeBackend)
+    assert cpu.device == torch.device("cpu")
+    assert (cpu.n_heads, cpu.n_kv_heads, cpu.vocab) == (6, 3, 300)
+    assert isinstance(make_backend("hybrid", scheduler_cfg=cfg),
+                      HybridBackend)
     spec = SchedulerConfig(**dict(CASES["k1"][0], speculative_k=2))
-    with pytest.raises(NotImplementedError):
-        make_backend("torch", scheduler_cfg=spec, torch_device="cpu")
+    sb = make_backend("torch", scheduler_cfg=spec, torch_device="cpu")
+    assert isinstance(sb, SpeculativeBackend)
+    assert isinstance(sb.target, TorchBackend)
+    assert isinstance(sb.draft, CpuDecodeBackend)
     with pytest.raises(ValueError):
         make_backend("torch", scheduler_cfg=cfg, torch_device="cpu",
                      arch="no-such-model")

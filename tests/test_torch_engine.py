@@ -74,10 +74,45 @@ def test_serve_cli_on_cpu():
     assert "[serve] workers=2 kernel_launches=0" in proc.stdout
 
 
-@pytest.mark.parametrize("flag", (["--backend", "hybrid"],
-                                  ["--backend", "cpu"],
-                                  ["--replicas", "2"]))
+@pytest.mark.parametrize("flag", (
+    ["--backend", "hybrid", "--prefill-backend", "torch",
+     "--decode-backend", "emulated"],
+    ["--backend", "hybrid", "--prefill-backend", "emulated",
+     "--decode-backend", "cpu"],
+    ["--backend", "torch", "--speculative-k", "2", "--draft-backend",
+     "emulated"]))
 def test_serve_refuses_what_is_not_ported(flag):
+    """Every composition is ported; what serve still refuses, before any
+    process forks, is a pairing that mixes a physical and an emulated
+    child (a hybrid's tiers, or a speculative target and its draft)."""
     proc = _serve(*flag)
     assert proc.returncode == 2
-    assert "not yet ported" in proc.stderr
+    assert "physical" in proc.stderr
+
+
+def test_worker_sees_every_leaf_and_counts_every_child(monkeypatch):
+    """``EngineConfig.leaves`` names what a worker builds (its thread
+    guard and the owner's nvcc build read it), and the worker's stats read
+    B1's per-process launch count and the composites' counters through a
+    speculative wrapper around a hybrid."""
+    from repro_torch.backend import make_backend
+    from repro_torch.core.engine import _composite_counters, _kernel_launches
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention)
+    spec = SchedulerConfig(kv_capacity_tokens=512, block_size=8,
+                           speculative_k=2)
+    assert EngineConfig(backend="torch").leaves() == {"torch"}
+    assert EngineConfig(backend="hybrid", prefill_backend="torch",
+                        decode_backend="cpu").leaves() == {"torch", "cpu"}
+    assert EngineConfig(backend="torch", scheduler=spec).leaves() == {
+        "torch", "cpu"}
+    assert EngineConfig(backend="emulated", scheduler=spec).leaves() == {
+        "emulated"}
+    be = make_backend("hybrid", scheduler_cfg=spec, prefill_backend="torch",
+                      decode_backend="cpu", torch_device="cpu")
+    monkeypatch.setattr(paged_decode_attention, "launches", 7)
+    assert _kernel_launches(be) == 7
+    assert _composite_counters(be) == {
+        "n_spec_steps": 0, "n_drafted": 0, "n_accepted": 0,
+        "n_handoffs": 0, "n_handoff_blocks": 0}
+    assert _kernel_launches(make_backend("emulated")) == 0

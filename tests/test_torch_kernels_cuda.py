@@ -14,6 +14,12 @@ split counts from 1 to one page per split (through the private
 lengths than the 64-slot tile, and bitwise-equal repeated calls.
 ``make_case`` also feeds tests/test_torch_paged_attention.py, which holds
 the plain version against the JAX package on the CPU.
+
+Then the call shape of speculative verify (``verify_rows``: k+1 rows per
+request on one block table, seq_lens start+1 .. start+k+1), held to the
+plain version and to the split rule, and speculative decode on the card
+against stepwise greedy decode on the card, token for token, at the
+toy width and at the serve runs' (``serve_width_streams``).
 """
 from __future__ import annotations
 
@@ -23,8 +29,13 @@ import torch
 
 from repro_torch.kernels.paged_decode_attention import _launch as launch_paged
 from repro_torch.kernels.paged_decode_attention import (
+    ROW_GROUP,
+    _blocks_per_sm,
+    choose_splits,
     paged_decode_attention,
     paged_decode_attention_reference,
+    paged_decode_attention_split_reference,
+    split_ranges,
 )
 
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -206,3 +217,156 @@ def test_split_kernel_is_deterministic(cuda_device, quantized):
     first = paged_decode_attention(*args, **kw)
     for _ in range(3):
         assert torch.equal(paged_decode_attention(*args, **kw), first)
+
+
+# -- the call shape of speculative verify ----------------------------------------
+
+def verify_rows(requests: int = 8, k: int = 4, *, quantized: bool,
+                block: int = 64, nb: int = 32, seed: int = 0):
+    """Speculative verify's call: each of ``requests`` requests sends k+1
+    rows that share its block table of ``nb`` pages, with seq_lens
+    start+1 .. start+k+1 (start = nb * block - k - 1, so that the last row
+    fills the table), at qwen2-0.5b's heads over a pool of requests * nb
+    pages, the count of ``serving_rows``."""
+    rng = np.random.default_rng(seed)
+    N = requests * nb
+    tables = rng.permutation(N).astype(np.int32).reshape(requests, nb)
+    start = nb * block - k - 1
+    bt = np.repeat(tables, k + 1, axis=0)
+    lens = np.tile(np.arange(start + 1, start + k + 2, dtype=np.int32),
+                   requests)
+    case = dict(q=rng.standard_normal((len(lens), 14, 64)).astype(np.float32),
+                block_tables=bt, seq_lens=lens)
+    shape = (KV, N, block, 64)
+    if quantized:
+        case["k_pages"] = rng.integers(-127, 128, shape).astype(np.int8)
+        case["v_pages"] = rng.integers(-127, 128, shape).astype(np.int8)
+        case["k_scales"] = rng.uniform(0.1, 3.0, (KV, N)).astype(np.float32)
+        case["v_scales"] = rng.uniform(0.1, 3.0, (KV, N)).astype(np.float32)
+    else:
+        case["k_pages"] = rng.standard_normal(shape).astype(np.float32)
+        case["v_pages"] = rng.standard_normal(shape).astype(np.float32)
+    return case
+
+
+def rule_splits(args, quantized: bool) -> int:
+    """The split count the wrapper's rule gives these arguments."""
+    q, _, _, bt, _ = args
+    B, H, D = q.shape
+    groups = B * KV * -(-(H // KV) // ROW_GROUP)
+    return len(split_ranges(bt.shape[1], choose_splits(
+        groups, bt.shape[1],
+        torch.cuda.get_device_properties(q.device).multi_processor_count,
+        _blocks_per_sm(q.get_device(), quantized, D, bt.shape[1]))))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", (False, True), ids=("fp32", "int8"))
+@pytest.mark.parametrize("k", (1, 3, 4))
+def test_kernel_at_the_verify_shape(cuda_device, quantized, k):
+    """8 requests x (k+1) rows on shared tables: the wrapper against the
+    plain version and against the split rule at the rule's count."""
+    args, kw = _on(verify_rows(8, k, quantized=quantized, seed=k),
+                   cuda_device)
+    got = paged_decode_attention(*args, **kw)
+    torch.testing.assert_close(
+        got, paged_decode_attention_reference(*args, **kw), **TOL)
+    torch.testing.assert_close(got, paged_decode_attention_split_reference(
+        *args, **kw, n_splits=rule_splits(args, quantized)), **TOL)
+
+
+def drive(cfg, backend, prompts):
+    """``prompts`` (prompt length, max new tokens) through the port's
+    scheduler and ``backend`` to the end; returns the token streams and
+    the number of speculative plans."""
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.scheduler import Scheduler
+    sched = Scheduler(cfg)
+    reqs = []
+    for i, (n, max_new) in enumerate(prompts):
+        r = Request(text="", max_new_tokens=max_new, req_id=i)
+        r.prompt_tokens = [3 + ((((i + 1) << 10) + j) % 100)
+                           for j in range(n)]
+        sched.add_request(r)
+        reqs.append(r)
+    specs = step = 0
+    while sched.has_work and step < 500:
+        plan = sched.schedule()
+        if plan is None:
+            break
+        step += 1
+        specs += plan.speculative
+        for req in sched.complete_step(plan, float(step),
+                                       backend.execute(plan)):
+            backend.release(req.req_id)
+    return [list(r.generated) for r in reqs], specs
+
+
+def serve_width_streams(device):
+    """Stepwise greedy decode and speculative decode (k 4, draft and target
+    of one seed, both on ``device``) at the serve runs' widths
+    (qwen2-0.5b's heads and vocab, block 64), 8 requests of 512 prompt
+    tokens and 16 new ones: on the card B1 splits a verify call (40 rows)
+    in fewer parts than a decode step (8 rows).  Returns both streams, the
+    speculative plans and the speculative backend."""
+    from repro_torch.backend import ARCH_WIDTHS
+    from repro_torch.backend.surrogate import draw_params
+    from repro_torch.backend.torch_backend import TorchBackend
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.spec import SpeculativeBackend
+    widths = ARCH_WIDTHS["qwen2-0.5b"]
+    params = draw_params(seed=0, **widths)
+    prompts = [(512, 16)] * 8
+
+    def cfg(spec_k):
+        return SchedulerConfig(block_size=64, kv_capacity_tokens=128 * 64,
+                               max_num_seqs=8, speculative_k=spec_k)
+
+    def leaf(c):
+        return TorchBackend(device=device, params=params, block_size=64,
+                            num_blocks=c.num_kv_blocks, **widths)
+    stepwise, _ = drive(cfg(0), leaf(cfg(0)), prompts)
+    sb = SpeculativeBackend(leaf(cfg(4)), leaf(cfg(4)))
+    spec, n_spec = drive(cfg(4), sb, prompts)
+    return stepwise, spec, n_spec, sb
+
+
+@pytest.mark.cuda
+def test_speculative_streams_equal_stepwise_at_serve_widths(cuda_device):
+    stepwise, spec, n_spec, _ = serve_width_streams(cuda_device)
+    assert n_spec >= 1
+    assert spec == stepwise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ("torch", "hybrid"))
+def test_speculative_streams_equal_stepwise_on_card(cuda_device, target):
+    """Greedy speculative decode with the target on the card and a cpu
+    draft emits stepwise greedy decode's tokens on the card, under swap
+    churn; verify calls and decode steps reach B1 with other row counts."""
+    from repro_torch.backend.cpu_decode import CpuDecodeBackend
+    from repro_torch.backend.hybrid import HybridBackend
+    from repro_torch.backend.torch_backend import TorchBackend
+    from repro_torch.serving.scheduler import SchedulerConfig
+    from repro_torch.spec import SpeculativeBackend
+
+    def run(spec_k: int):
+        cfg = SchedulerConfig(
+            max_num_seqs=8, max_tokens_per_step=64, prefill_chunk=16,
+            enable_prefix_cache=False, block_size=8,
+            kv_capacity_tokens=12 * 8, preemption_policy="swap",
+            swap_capacity_tokens=32 * 8, speculative_k=spec_k)
+        kw = dict(block_size=8, num_blocks=cfg.num_kv_blocks,
+                  num_swap_blocks=cfg.num_swap_blocks, vocab=128)
+        be = TorchBackend(device=cuda_device, **kw)
+        if target == "hybrid":
+            be = HybridBackend(be, CpuDecodeBackend(**kw))
+        if spec_k:
+            be = SpeculativeBackend(CpuDecodeBackend(**kw), be)
+        return drive(cfg, be, ((12, 12), (20, 9), (9, 12)))
+
+    stepwise, _ = run(0)
+    before = paged_decode_attention.launches
+    spec, n_spec = run(4)
+    assert n_spec >= 1 and paged_decode_attention.launches > before
+    assert spec == stepwise
