@@ -139,7 +139,33 @@ fails:
    (1e-5), then timed as phase 6 times B1, with SDPA over the gathered
    K/V under a length mask for fp32; the log also gives the largest
    difference between the rule's split count at 40 rows and the count a
-   decode step of the same 8 requests takes.
+   decode step of the same 8 requests takes;
+21. the moe path at full width: granite-moe-3b-a800m as published (32
+   layers, d_model 1536, 24/8 heads at D 64, 40 experts top-8 with d_ff
+   512, vocab 49,155, tied, bf16), run as phase 7 runs qwen2-0.5b; B3
+   launched at least 32 times per prefill, all on its ``wgmma`` route,
+   and B2 at least 32 times per decode step;
+22. qwen2-moe-a2.7b as published (24 layers, d_model 2048, 16/16 heads at
+   D 128, 60 experts top-4 with d_ff 1408 and 4 shared experts, vocab
+   151,936, untied, bf16; about 28.6 GB of weights, freed afterwards), the
+   same run with 24 launches per prefill and per step;
+23. the encoder-decoder path: whisper-small as published (12 encoder and
+   12 decoder layers, d_model 768, 12/12 heads at D 64, vocab 51,865,
+   bf16), 8 x 1,500 random frames for its encoder, a decoder prompt of
+   8 x 64 tokens and 32 steps (96 positions, within its 448); B3 launched
+   at least 24 times per prefill (12 bidirectional over the frames, 12
+   causal), all on ``wgmma``, and B2 at least 24 times per step (12
+   self-attention, 12 cross over the 1,500 slots);
+24. token identity of those paths, float32, TF32 off, as phase 8, at full
+   width cut in depth: granite-moe to 4 of 32 layers, qwen2-moe to 2 of
+   24, whisper to 2 encoder and 2 decoder layers with 1,500 frames; the
+   moe archs under the near-tie rule (``model_token_identity``: expert
+   sets compared call by call, a difference must be a near-tie of the
+   CPU's probabilities within 1e-5, and a run with one is logged and
+   retried with the next prompt seed, at most three); then B3 at
+   whisper's encoder shape (8 x 1,500, bidirectional) and B2 at its
+   cross-attention decode (8 rows x 1,500 slots) held to their plain
+   versions and timed as phase 10 times B3 and B2.
 
 The line before the last is the ``kernels`` JSON; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -359,10 +385,36 @@ def main() -> None:
     # 8 of 38 layers: one hybrid period and the tail, so both stages run
     model_token_identity(dev, "zamba2-1.2b", n_layers=8)
     entries += time_scan(dev, ssm_launches["scan"])
+
+    # 21.-24. the moe and encoder-decoder paths, B3 and B2 at whisper's
+    # shapes
+    t_moe = time.perf_counter()
+    for arch in ("granite-moe-3b-a800m", "qwen2-moe-a2.7b"):
+        n = layer_calls(arch, "attn")
+        model_path(dev, arch, {"flash": (flash_attention_bhsd, n, 0),
+                               "decode": (decode_attention_bhd, 0, n)},
+                   routes={"wgmma": n})
+    enc, dec = (layer_calls("whisper-small", kind)
+                for kind in ("enc_attn", "dec_attn"))
+    whisper = model_path(
+        dev, "whisper-small",
+        {"flash": (flash_attention_bhsd, enc + dec, 0),
+         "decode": (decode_attention_bhd, 0, 2 * dec)},   # self and cross
+        routes={"wgmma": enc + dec}, prompt=64,
+        extras=audio_frames(dev, "whisper-small", 8))
+    from repro_torch.configs.base import EncDecConfig
+    # depth cut so that the CPU's share stays short; widths as published
+    model_token_identity(dev, "granite-moe-3b-a800m", n_layers=4)
+    model_token_identity(dev, "qwen2-moe-a2.7b", n_layers=2)
+    model_token_identity(dev, "whisper-small", n_layers=2,
+                         encdec=EncDecConfig(n_encoder_layers=2,
+                                             n_encoder_ctx=1500))
+    entries += time_whisper(dev, whisper)
     now = time.perf_counter()
     log(f"phases 1-10 and 19-20 took {t_ssm - t_start - t_comp:.1f} s, "
-        f"phases 11-15 {now - t_ssm:.1f} s, the serve runs of phases "
-        f"16-18 {t_comp:.1f} s")
+        f"phases 11-15 {t_moe - t_ssm:.1f} s, phases 21-24 "
+        f"{now - t_moe:.1f} s, the serve runs of phases 16-18 "
+        f"{t_comp:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -840,13 +892,16 @@ def _clone(tree):
             for k, v in tree.items()}
 
 
-def model_path(dev, arch: str, kernels: dict, routes=None) -> dict:
-    """``arch`` as published (bf16, full width): prefill 8 x 512, 32
-    decode_steps, the same 32 tokens through decode_multi.  ``kernels``
-    maps a name to (wrapper, launches wanted per prefill, per decode step);
-    ``routes`` maps a route of B3 to the launches wanted on it per
-    prefill.  Returns each kernel's launches over this run (every count set
-    to 0 just before it, read just after)."""
+def model_path(dev, arch: str, kernels: dict, routes=None, *,
+               prompt: int = 512, extras=None) -> dict:
+    """``arch`` as published (bf16, full width): prefill 8 x ``prompt``,
+    32 decode_steps, the same 32 tokens through decode_multi; ``extras``
+    go to every prefill (whisper's frames).  ``kernels`` maps a name to
+    (wrapper, launches wanted per prefill, per decode step); ``routes``
+    maps a route of B3 to the launches wanted on it per prefill, and then
+    no other route may launch in prefill.  Returns each kernel's launches
+    over this run (every count set to 0 just before it, read just
+    after)."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     import numpy as np
     import torch
@@ -855,7 +910,8 @@ def model_path(dev, arch: str, kernels: dict, routes=None) -> dict:
     from repro_torch.models import model as M
 
     cfg = get_config(arch)
-    B, S, N = 8, 512, 32
+    B, S, N = 8, prompt, 32
+    extras = extras or {}
     t0 = time.perf_counter()
     model = M.Model(cfg, generator=torch.Generator(dev).manual_seed(0),
                     device=dev)
@@ -864,7 +920,7 @@ def model_path(dev, arch: str, kernels: dict, routes=None) -> dict:
         0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
     # warm-up at the timed shapes (cuBLAS, the kernel library, the caching
     # allocator), not counted
-    _, c = model.prefill(toks)
+    _, c = model.prefill(toks, extras)
     c = M.grow_cache(c, cfg, B, S + N)
     for i in range(4):
         model.decode_step(toks[:, :1], c, S + i)
@@ -880,16 +936,19 @@ def model_path(dev, arch: str, kernels: dict, routes=None) -> dict:
     for r in by_route:
         by_route[r] = 0
     start.record()
-    logits, cache = model.prefill(toks)
+    logits, cache = model.prefill(toks, extras)
     end.record()
     torch.cuda.synchronize()
     prefill_ms = start.elapsed_time(end)
     in_prefill = {k: w.launches for k, (w, _, _) in kernels.items()}
     routes_in_prefill = dict(by_route)
-    for r, want in (routes or {}).items():
-        if routes_in_prefill[r] < want:
-            fail(f"{arch}: flash kernel launched {routes_in_prefill[r]} "
-                 f"times on its {r} route in prefill, want >= {want}")
+    for r, launched in routes_in_prefill.items():
+        if launched < (routes or {}).get(r, 0):
+            fail(f"{arch}: flash kernel launched {launched} times on its "
+                 f"{r} route in prefill, want >= {routes[r]}")
+        if routes and r not in routes and launched:
+            fail(f"{arch}: flash kernel launched {launched} times on its "
+                 f"{r} route in prefill, want all on {sorted(routes)}")
     if not torch.isfinite(logits).all():
         fail("prefill logits are not finite")
     cache = M.grow_cache(cache, cfg, B, S + N)
@@ -913,7 +972,7 @@ def model_path(dev, arch: str, kernels: dict, routes=None) -> dict:
     multi_ms = start.elapsed_time(end) / N
     counts = {k: w.launches for k, (w, _, _) in kernels.items()}
     busy = {
-        "prefill": device_share(lambda: model.prefill(toks)),
+        "prefill": device_share(lambda: model.prefill(toks, extras)),
         "decode_step x4": device_share(lambda: [
             model.decode_step(first, saved, S + i) for i in range(4)]),
     }
@@ -942,6 +1001,20 @@ def model_path(dev, arch: str, kernels: dict, routes=None) -> dict:
     del model, cache, saved
     torch.cuda.empty_cache()
     return counts
+
+
+def audio_frames(dev, arch: str, batch: int) -> dict:
+    """Whisper's encoder input as ``extras``: random frames [batch, 1500,
+    d_model] in the model's dtype, from a seeded generator on the card
+    (the conv frontend is a stub, as in the reference)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    g = torch.Generator(dev).manual_seed(1)
+    return {"frames": torch.randn(
+        (batch, cfg.encdec.n_encoder_ctx, cfg.d_model), generator=g,
+        device=dev).to(cfg.param_dtype())}
 
 
 def device_share(fn) -> tuple:
@@ -981,7 +1054,16 @@ def layer_calls(arch: str, *kinds: str) -> int:
 def model_token_identity(dev, arch: str, **cut) -> None:
     """``arch`` in float32 at full width (depth cut by ``cut``), the same
     weights on the card and on the CPU: one 64-token prompt, 16 greedy
-    tokens."""
+    tokens; whisper's encoder takes 1,500 random frames, the same on both.
+
+    A moe arch is held to the near-tie rule (tests/test_torch_moe_cuda.py,
+    ``routing_report``): every moe layer's input is recorded on both
+    devices, and its expert sets are compared call by call, in order, up
+    to the first call whose sets differ; that difference must be a
+    near-tie (the CPU's k-th and (k+1)-th probabilities within 1e-5), else
+    the run fails.  A run with a near-tie is logged and counted and proves
+    nothing about the streams, so the next prompt seed is tried, at most
+    three; the first run without one must give equal streams."""
     import copy
 
     import numpy as np
@@ -989,30 +1071,84 @@ def model_token_identity(dev, arch: str, **cut) -> None:
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    from repro_torch.models.moe import MoE
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_moe_cuda import NEAR_TIE, routing_report
 
     cfg = get_config(arch).scaled(dtype="float32", **cut)
     S, N = 64, 16
+    moe = cfg.moe is not None
     t0 = time.perf_counter()
     cpu = M.Model(cfg, generator=torch.Generator().manual_seed(0),
                   device="cpu")
     card = copy.deepcopy(cpu).to(dev)
-    toks = np.random.default_rng(1).integers(0, cfg.vocab_size,
-                                             (1, S)).astype(np.int32)
-    streams = {}
-    for name, model in (("cuda", card), ("cpu", cpu)):
-        t = torch.from_numpy(toks).to(model.device)
-        logits, cache = model.prefill(t)
-        cache = M.grow_cache(cache, cfg, 1, S + N)
-        first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)
-        fused, _, _ = model.decode_multi(first[:, None], cache, S, N)
-        streams[name] = [int(first[0])] + fused[0].tolist()
-    if streams["cuda"] != streams["cpu"]:
-        fail(f"model tokens differ between cuda and cpu: {streams['cuda']} "
-             f"vs {streams['cpu']}")
-    log(f"model token identity {arch} (float32, full width"
-        + (f", {cut}" if cut else "") + f"): cuda == cpu over "
-        f"{len(streams['cpu'])} tokens ({time.perf_counter() - t0:.1f} s)")
-    del card
+    ties = []
+    for seed in ((1, 2, 3) if moe else (1,)):
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, (1, S)).astype(np.int32)
+        frames = (rng.standard_normal((1, cfg.encdec.n_encoder_ctx,
+                                       cfg.d_model)).astype(np.float32)
+                  if cfg.family == "audio" else None)
+        streams, calls = {}, {}
+        for name, model in (("cuda", card), ("cpu", cpu)):
+            calls[name] = []
+            hooks = [m.register_forward_hook(
+                lambda mod, args, out, rec=calls[name]: rec.append(
+                    (mod, args[0])))
+                for m in model.modules() if isinstance(m, MoE)]
+            try:
+                t = torch.from_numpy(toks).to(model.device)
+                extras = ({} if frames is None else
+                          {"frames": torch.from_numpy(frames).to(
+                              model.device)})
+                logits, cache = model.prefill(t, extras)
+                cache = M.grow_cache(cache, cfg, 1, S + N)
+                first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(
+                    torch.int32)
+                fused, _, _ = model.decode_multi(first[:, None], cache, S, N)
+            finally:
+                for h in hooks:
+                    h.remove()
+            streams[name] = [int(first[0])] + fused[0].tolist()
+        tie = None
+        if len(calls["cuda"]) != len(calls["cpu"]):
+            fail(f"{arch}: {len(calls['cuda'])} moe calls on the card, "
+                 f"{len(calls['cpu'])} on the CPU")
+        for i, ((m_card, x_card), (m_cpu, x_cpu)) in enumerate(
+                zip(calls["cuda"], calls["cpu"])):
+            rep = routing_report(x_card, x_cpu, m_card.router.detach(),
+                                 m_cpu.router.detach(), m_cpu.dims)
+            if rep["differ"] > rep["near_ties"]:
+                fail(f"{arch} seed {seed}: moe call {i} of "
+                     f"{len(calls['cpu'])} routes {rep['differ']} of "
+                     f"{rep['tokens']} tokens to other experts on the card, "
+                     f"{rep['near_ties']} of them at a near-tie "
+                     f"(<= {NEAR_TIE}; smallest gap {rep['min_gap']})")
+            if rep["near_ties"]:
+                tie = (i, rep)
+                break
+        if moe:
+            same = streams["cuda"] == streams["cpu"]
+            log(f"model token identity {arch} seed {seed}: "
+                f"{len(calls['cpu'])} moe calls compared, "
+                + (f"near-tie at call {tie[0]}: {tie[1]}; streams "
+                   f"{'equal' if same else 'differ'}, next seed" if tie
+                   else "expert sets equal"))
+        if tie:
+            ties.append((seed, tie))
+            continue
+        if streams["cuda"] != streams["cpu"]:
+            fail(f"model tokens differ between cuda and cpu: "
+                 f"{streams['cuda']} vs {streams['cpu']}")
+        log(f"model token identity {arch} (float32, full width"
+            + (f", {cut}" if cut else "") + f"): cuda == cpu over "
+            f"{len(streams['cpu'])} tokens"
+            + (f", seed {seed} after {len(ties)} near-tie run(s)" if moe
+               else "") + f" ({time.perf_counter() - t0:.1f} s)")
+        break
+    else:
+        fail(f"{arch}: every prompt seed had a near-tie: {ties}")
+    del card, calls
     torch.cuda.empty_cache()
 
 
@@ -1161,7 +1297,7 @@ def time_attention(dev, launches: dict) -> list:
     return out
 
 
-def time_flash(dev, launches: dict, B, S, H, KV, D) -> dict:
+def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -1169,15 +1305,17 @@ def time_flash(dev, launches: dict, B, S, H, KV, D) -> dict:
         flash_attention_bhsd, flash_attention_reference, route)
     cases = _attention_cases()
     c = cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H, KV=KV, D=D)
+    c["causal"] = causal
     q, k, v = c["q"], c["k"], c["v"]
     got = cases.run_flash(flash_attention_bhsd, c)
     name = f"flash_attention_bf16_b{B}_s{S}" + (
-        "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}")
+        "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}") + (
+        "" if causal else "_bidir")
     want = cases.run_flash(flash_attention_reference, c)
     err = _held_to_plain(got, want, name, "flash")
 
     def sdpa():
-        return F.scaled_dot_product_attention(q, k, v, is_causal=True,
+        return F.scaled_dot_product_attention(q, k, v, is_causal=causal,
                                               enable_gqa=True)
     if not torch.allclose(sdpa().float(), want.float(),
                           **YARDSTICK_TOL):
@@ -1187,13 +1325,15 @@ def time_flash(dev, launches: dict, B, S, H, KV, D) -> dict:
         lambda: cases.run_flash(flash_attention_reference, c))
     library_ms = cuda_ms(sdpa)
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)  # q, o, k, v
-    flops = 4 * D * H * B * S * (S + 1) // 2                # kept pairs
+    pairs = S * (S + 1) // 2 if causal else S * S           # kept pairs
+    flops = 4 * D * H * B * pairs
     bound_ms, bound_by = _bound(nbytes, flops)
     which = route(torch.bfloat16, D)
     dev_ms = _device_ms_per_call(
         lambda: cases.run_flash(flash_attention_bhsd, c))
-    log(f"{name}: H={H} KV={KV} D={D} causal, {which} route: max abs err "
-        f"{err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+    log(f"{name}: H={H} KV={KV} D={D} "
+        f"{'causal' if causal else 'bidirectional'}, {which} route: max abs "
+        f"err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} "
         f"B, {flops} flop), achieved {flops / (ms * 1e-3) / 1e12:.2f} "
         f"TFLOP/s; device time per call (profiler): kernel {dev_ms}, SDPA "
@@ -1208,7 +1348,7 @@ def time_flash(dev, launches: dict, B, S, H, KV, D) -> dict:
             "library_ms": library_ms}
 
 
-def time_decode(dev, launches: dict, B, Sc) -> dict:
+def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -1216,11 +1356,11 @@ def time_decode(dev, launches: dict, B, Sc) -> dict:
         ROW_GROUP, choose_splits, decode_attention_bhd,
         decode_attention_reference, split_ranges, tile_slots)
     cases = _attention_cases()
-    H, KV, D = 14, 2, 64
     c = cases.model_decode(dev, torch.bfloat16, B=B, Sc=Sc, H=H, KV=KV, D=D)
     c["cache_len"] = torch.full((B,), Sc, dtype=torch.int32, device=dev)
     got = cases.run_decode(decode_attention_bhd, c)
-    name = f"decode_attention_bf16_b{B}_s{Sc}"
+    name = f"decode_attention_bf16_b{B}_s{Sc}" + (
+        "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}")
     want = cases.run_decode(decode_attention_reference, c)
     err = _held_to_plain(got, want, name, "decode")
     q4 = c["q"][:, :, None]                                 # [B, H, 1, D]
@@ -1260,6 +1400,14 @@ def time_decode(dev, launches: dict, B, Sc) -> dict:
             "launches": launches["decode"], "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms}
+
+
+def time_whisper(dev, launches: dict) -> list:
+    """B3 at whisper-small's encoder (8 x 1,500 frames, bidirectional,
+    12/12 heads, D 64) and B2 at its cross-attention decode (8 rows over
+    the 1,500 encoder slots, all valid), bf16, as phase 10 times B3/B2."""
+    return [time_flash(dev, launches, 8, 1500, 12, 12, 64, causal=False),
+            time_decode(dev, launches, 8, 1500, 12, 12, 64)]
 
 
 # -- phase 11: B4 against its plain version -----------------------------------

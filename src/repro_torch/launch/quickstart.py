@@ -4,9 +4,11 @@
 
 The port's twin of ``examples/quickstart.py``, through the public API
 only: configs registry -> ``tiny_config`` -> ``Model`` -> ``prefill`` ->
-grow the cache -> ``decode_step``, with the BPE tokenizer.  Any ported
-architecture: the attention-only ones, falcon-mamba-7b (Mamba-1) and
-zamba2-1.2b (Mamba-2 with a shared attention block).  It runs on the card
+grow the cache -> ``decode_step``, with the BPE tokenizer.  Any of the
+ten architectures: the attention-only ones, the moe ones, whisper-small
+(zero frames for its encoder, as the reference's quickstart gives it),
+falcon-mamba-7b (Mamba-1) and zamba2-1.2b (Mamba-2 with a shared
+attention block).  It runs on the card
 (``--device cuda``, the default, which raises without one) through the
 port's kernels, or on the CPU through their plain versions.
 """
@@ -49,6 +51,10 @@ def main(argv=None) -> None:
     if cfg.family == "vlm":
         extras["mrope_positions"] = torch.arange(
             toks.shape[1], device=device).expand(3, 1, toks.shape[1])
+    if cfg.family == "audio":
+        extras["frames"] = torch.zeros(
+            (1, cfg.encdec.n_encoder_ctx, cfg.d_model),
+            dtype=cfg.param_dtype(), device=device)
 
     logits, cache = model.prefill(toks, extras)
     # grow the prefill cache to hold the new tokens

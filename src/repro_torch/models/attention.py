@@ -11,11 +11,15 @@ kernels through ``repro_torch.kernels.ops`` with transposed views of those
 tensors (``[B, H, S, D]``, ``[B, KV, S, D]``): the kernels read them through
 their strides, so no copy of an activation or of the cache is made.  On
 the CPU the same calls compute the kernels' plain versions, which the
-tests hold against the reference's jnp path.
+tests hold against the reference's jnp path.  ``cross_attention`` (the
+decoder's queries over whisper's encoder context at prefill) is plain
+torch ops, as in the reference; at decode the model reads the cross K/V
+through ``decode_attention``.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
@@ -134,6 +138,24 @@ def flash_attention(q, k, v, layout: HeadLayout, *, causal: bool,
     o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                             v.transpose(1, 2), causal=causal, window=window)
     return o.transpose(1, 2)
+
+
+def cross_attention(q, k, v, layout: HeadLayout):
+    """Bidirectional attention of q [B, S, Hp, Dh] over an encoder context
+    k, v [B, T, KVs, Dh] (whisper's 1,500 frames), any T: the reference's
+    single dot (``repro.models.attention.cross_attention``), in plain torch
+    ops as the reference leaves it to XLA outside any Pallas kernel (B3
+    takes only ``T == S``).  Scores in the inputs' dtype, then float32,
+    scaled by 1/sqrt(Dh); softmax in float32; the weights cast back to v's
+    dtype for the product with v.  Returns [B, S, Hp, Dh]."""
+    B, S, hp, dh = q.shape
+    kvs = k.shape[2]
+    qg = q.reshape(B, S, kvs, hp // kvs, dh)
+    s = torch.einsum("bqgnd,bsgd->bgnqs", qg, k).float() * (
+        1.0 / math.sqrt(dh))
+    a = torch.softmax(s, dim=-1)
+    o = torch.einsum("bgnqs,bsgd->bqgnd", a.to(v.dtype), v)
+    return o.reshape(B, S, hp, dh)
 
 
 def decode_attention(q, k_cache, v_cache, cache_len, cache_positions,

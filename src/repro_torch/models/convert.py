@@ -7,11 +7,13 @@ module) and build the port's ``Model`` with the same numbers.  The
 reference stacks each stage's periods on a leading axis; the port's
 parameter names are the reference's tree paths with the period index
 after the stage name (``dense.layer0.attn.wq[p]`` ->
-``stages.dense.<p>.layer0.attn.wq``); top-level leaves, zamba2's one
-``shared_block`` among them, keep their path.  Each leaf keeps the
-port's dtype (the ssm layers' ``D``, ``dt_bias`` and ``A_log`` are
-float32 in a bf16 model, as in the reference).  Only the no-mesh,
-``tp = 1`` layout is carried.
+``stages.dense.<p>.layer0.attn.wq``, whisper's ``encoder`` stage and the
+moe layers' ``moe.router``, ``shared_mlp.*`` and ``shared_gate`` alike);
+top-level leaves, zamba2's one ``shared_block`` and whisper's
+``enc_norm`` among them, keep their path.  Each leaf keeps the port's
+dtype (the ssm layers' ``D``, ``dt_bias`` and ``A_log`` and the moe
+router are float32 in a bf16 model, as in the reference).  Only the
+no-mesh, ``tp = 1`` layout is carried.
 """
 from __future__ import annotations
 

@@ -8,7 +8,8 @@ Conventions, as in the reference:
     weight), so that ``repro_torch.models.convert`` copies them as they are.
 
 Modules hold weights (``Norm``, ``MLP``); ``apply_norm``, ``apply_rope``,
-``apply_mrope`` and ``apply_mlp`` are plain functions on tensors.  The
+``apply_mrope``, ``sinusoid_embed`` and ``apply_mlp`` are plain functions
+on tensors.  The
 rotary is split into its cos/sin (``rope_cos_sin``, ``mrope_cos_sin``) and
 ``rotate``, so that the model computes the angles once per call, not once
 per layer.  The init
@@ -156,6 +157,24 @@ def apply_mrope(x, positions_thw, theta: float,
     """x: [B, S, H, Dh]; see ``mrope_cos_sin``."""
     return rotate(x, *mrope_cos_sin(positions_thw, x.shape[-1], theta,
                                     sections))
+
+
+def sinusoid_embed(positions, d: int) -> torch.Tensor:
+    """Whisper-style sinusoidal absolute embedding, float32: positions
+    [...] (a tensor, on the device at decode) -> [..., d], the sines of
+    ``d // 2`` timescales spaced by ``log(10000) / (d // 2 - 1)``, then
+    their cosines."""
+    half = d // 2
+    log_timescale = math.log(10_000.0) / max(half - 1, 1)
+    inv = torch.exp(-log_timescale * torch.arange(
+        half, dtype=torch.float32, device=positions.device))
+    scaled = positions.float()[..., None] * inv
+    return torch.cat([torch.sin(scaled), torch.cos(scaled)], dim=-1)
+
+
+def sinusoid_positions(n_pos: int, d: int, device=None) -> torch.Tensor:
+    """The [n_pos, d] float32 table of ``sinusoid_embed``."""
+    return sinusoid_embed(torch.arange(n_pos, device=device), d)
 
 
 # ---------------------------------------------------------------------------

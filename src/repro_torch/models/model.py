@@ -1,5 +1,5 @@
-"""The model stack for the attention and state-space architectures: the
-port of ``src/repro/models/model.py``.
+"""The model stack for all ten architectures: the port of
+``src/repro/models/model.py``.
 
 A model is a list of *stages*; a stage repeats ``n_periods`` identical
 *periods*; a period is a short static list of layer templates
@@ -14,18 +14,31 @@ periods per stage in place of the reference's stacked period axis:
                                                  [shared_attn, ssm x6];
                                                  ``hybrid_tail``: 1 period of
                                                  [shared_attn, ssm x2]
+  whisper:                                       ``encoder``: [bidir attn] x12;
+                                                 ``decoder``: [self + cross
+                                                 attn] x12
+  moe archs:                                     1 stage, period = [attn(moe)]
 
 zamba2's shared attention block is one set of weights at the top level
 (``shared_block``), looked up by every period, with a K/V cache of its
-own per period.  The audio (whisper) and moe families are not ported
-yet: ``build_plan`` raises ``NotImplementedError`` for them (ROADMAP.md).
+own per period.  Whisper's encoder (``Model._encode``) runs over the
+frames given as ``extras["frames"]`` [B, T, d] (the conv frontend is a
+stub, as in the reference) with sinusoidal positions; the decoder adds
+sinusoidal positions to its token embeddings, and each decoder layer
+attends the encoder's output through its ``cross`` attention, whose K/V
+prefill projects once and stores as ``xk``/``xv`` in the layer's cache
+entry.  A moe layer runs ``models.moe`` in place of its MLP (qwen2-moe
+adds shared experts behind a sigmoid gate); its aux loss is computed and
+dropped, as the reference's ``prefill`` drops it.
 
 Entry points: ``Model.forward``, ``Model.prefill``, ``Model.decode_step``,
 ``Model.decode_multi`` and ``cache_specs``, with the reference's shapes.
-The cache is ``{stage: {"layer{i}": entry}}`` with a leading period axis:
-an attention entry is ``{"k", "v"}``, ``[n_periods, B, Sc, KVs, Dh]``
-(window layers hold a ring of ``Sc = window`` slots once the sequence is
-longer), an ssm entry ``{"conv": [n_periods, B, K-1, di]`` in the config
+The cache is ``{stage: {"layer{i}": entry}}`` over the decoder stages
+(not whisper's encoder), with a leading period axis: an attention entry
+is ``{"k", "v"}``, ``[n_periods, B, Sc, KVs, Dh]`` (window layers hold a
+ring of ``Sc = window`` slots once the sequence is longer; whisper's
+decoder layers add ``"xk", "xv"``, ``[n_periods, B, T, KVs, Dh]``), an
+ssm entry ``{"conv": [n_periods, B, K-1, di]`` in the config
 dtype, ``"ssm": [n_periods, B, di, n]`` (Mamba-1) or ``[n_periods, B, nh,
 hd, n]`` (Mamba-2) in float32``}``.  Unlike the reference, ``decode_step``
 writes the new token's K/V and the new ssm states into the cache it is
@@ -36,10 +49,12 @@ per layer template, a decode step's lengths, write slots and slot
 positions) is computed once per call, not once per layer.
 
 Attention and the Mamba-1 scan run through ``repro_torch.kernels.ops``:
-the CUDA kernels (B3 at prefill, B2 at decode, B4 in every Mamba-1 layer)
+the CUDA kernels (B3 at prefill, whisper's encoder included, B2 at
+decode, whisper's cross-attention included, B4 in every Mamba-1 layer)
 for tensors on the card, their plain versions on the CPU.  Projections,
-MLPs, Mamba-2's SSD and logits are ``torch`` ops and matrix products, as
-the reference leaves them to XLA.  Weights are drawn from an explicit
+MLPs, the experts, cross-attention at prefill, Mamba-2's SSD and logits
+are ``torch`` ops and matrix products, as the reference leaves them to
+XLA.  Weights are drawn from an explicit
 ``torch.Generator`` on an explicit device, by default the card (raising
 without one); ``repro_torch.models.convert`` carries the reference's
 weights across instead.
@@ -55,10 +70,12 @@ from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     Attention,
     HeadLayout,
+    cross_attention,
     decode_attention,
     flash_attention,
     head_layout,
@@ -66,10 +83,13 @@ from repro_torch.models.attention import (
 from repro_torch.models.layers import (
     MLP,
     Norm,
+    dense_init,
     embed_init,
     mrope_cos_sin,
     rope_cos_sin,
     rotate,
+    sinusoid_embed,
+    sinusoid_positions,
 )
 
 # ---------------------------------------------------------------------------
@@ -83,7 +103,9 @@ class LayerSpec:
     window: Optional[int] = None    # sliding-window size (None = full)
     rope_theta: float = 10_000.0
     causal: bool = True
+    cross: bool = False             # whisper decoder cross-attention
     mlp: Optional[str] = None       # None = no MLP (mamba blocks)
+    moe: bool = False
     use_rope: bool = True           # whisper uses absolute positions instead
     use_mrope: bool = False
 
@@ -93,12 +115,11 @@ class Stage:
     name: str
     specs: Tuple[LayerSpec, ...]    # layer templates within one period
     n_periods: int
+    encoder: bool = False           # whisper encoder (consumes frames)
 
 
 def build_plan(cfg: ModelConfig) -> List[Stage]:
-    """The reference's plan for the decoder-only attention, ssm and hybrid
-    families; the audio and moe families, whose modules are not ported
-    yet, raise."""
+    """The reference's plan, family by family."""
     if cfg.family == "ssm":
         return [Stage("ssm", (LayerSpec(kind="ssm"),), cfg.n_layers)]
     if cfg.family == "hybrid":
@@ -111,15 +132,18 @@ def build_plan(cfg: ModelConfig) -> List[Stage]:
         if tail:
             stages.append(Stage("hybrid_tail", (shared,) + (ssm,) * tail, 1))
         return stages
-    if cfg.encdec is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder family needs cross-attention "
-            f"and the encoder, not ported yet (ROADMAP.md)")
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: the moe family needs models/moe.py, not ported yet "
-            f"(ROADMAP.md)")
+    if cfg.family == "audio" and cfg.encdec is not None:
+        enc = LayerSpec(kind="enc_attn", causal=False, mlp=cfg.mlp,
+                        use_rope=False)
+        dec = LayerSpec(kind="dec_attn", causal=True, cross=True, mlp=cfg.mlp,
+                        use_rope=False)
+        return [
+            Stage("encoder", (enc,), cfg.encdec.n_encoder_layers, encoder=True),
+            Stage("decoder", (dec,), cfg.n_layers),
+        ]
 
+    # decoder-only transformer families (dense / moe / vlm)
+    moe = cfg.moe is not None
     use_mrope = cfg.mrope_sections is not None
     if cfg.local_global_ratio is not None:
         local, glob = cfg.local_global_ratio
@@ -129,17 +153,17 @@ def build_plan(cfg: ModelConfig) -> List[Stage]:
                              f"periods of {period}")
         specs = tuple(
             LayerSpec(kind="attn", window=cfg.sliding_window,
-                      rope_theta=10_000.0, mlp=cfg.mlp)
+                      rope_theta=10_000.0, mlp=cfg.mlp, moe=moe)
             for _ in range(local)
         ) + tuple(
             LayerSpec(kind="attn", window=None, rope_theta=cfg.rope_theta,
-                      mlp=cfg.mlp)
+                      mlp=cfg.mlp, moe=moe)
             for _ in range(glob)
         )
         return [Stage("dense_lg", specs, cfg.n_layers // period)]
 
     spec = LayerSpec(kind="attn", window=cfg.sliding_window,
-                     rope_theta=cfg.rope_theta, mlp=cfg.mlp,
+                     rope_theta=cfg.rope_theta, mlp=cfg.mlp, moe=moe,
                      use_mrope=use_mrope)
     return [Stage(cfg.family, (spec,), cfg.n_layers)]
 
@@ -157,22 +181,39 @@ def _layout(cfg: ModelConfig) -> Optional[HeadLayout]:
 
 
 class AttnLayer(nn.Module):
-    """norm1 -> attention -> residual; norm2 -> MLP -> residual.  Parameter
-    names follow the reference's layer tree (``norm1``, ``attn``, ``norm2``,
-    ``mlp``)."""
+    """norm1 -> attention -> residual; for whisper's decoder, norm_x ->
+    cross-attention over the encoder's output -> residual; norm2 -> MLP or
+    experts -> residual (the reference's ``_attn_layer_full`` and
+    ``_attn_layer_decode``).  Parameter names follow the reference's layer
+    tree (``norm1``, ``attn``, ``norm_x``, ``cross``, ``norm2``, ``mlp`` or
+    ``moe``, ``shared_mlp``, ``shared_gate``)."""
 
     def __init__(self, spec: LayerSpec, cfg: ModelConfig, layout: HeadLayout,
                  device, generator):
         super().__init__()
         dtype = cfg.param_dtype()
+        d = cfg.d_model
         self.spec, self.cfg, self.layout = spec, cfg, layout
-        self.norm1 = Norm(cfg.norm, cfg.d_model, dtype, device)
-        self.attn = Attention(cfg.d_model, layout, dtype, device, generator,
+        self.norm1 = Norm(cfg.norm, d, dtype, device)
+        self.attn = Attention(d, layout, dtype, device, generator,
                               bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
-        if spec.mlp is not None:
-            self.norm2 = Norm(cfg.norm, cfg.d_model, dtype, device)
-            self.mlp = MLP(spec.mlp, cfg.d_model, cfg.d_ff, dtype, device,
-                           generator)
+        if spec.cross:
+            self.norm_x = Norm(cfg.norm, d, dtype, device)
+            self.cross = Attention(d, layout, dtype, device, generator,
+                                   bias=cfg.qkv_bias)
+        if spec.moe:
+            self.norm2 = Norm(cfg.norm, d, dtype, device)
+            self.moe = moe_mod.MoE(moe_mod.moe_dims(cfg.moe, d), dtype,
+                                   device, generator)
+            if cfg.moe.n_shared_experts:
+                self.shared_mlp = MLP(
+                    "swiglu", d, cfg.moe.n_shared_experts
+                    * cfg.moe.d_ff_expert, dtype, device, generator)
+                self.shared_gate = nn.Parameter(dense_init(
+                    d, 1, dtype, device, generator))
+        elif spec.mlp is not None:
+            self.norm2 = Norm(cfg.norm, d, dtype, device)
+            self.mlp = MLP(spec.mlp, d, cfg.d_ff, dtype, device, generator)
 
     def _qkv(self, x, rot):
         """Projections, then the rotary ``rot`` = (cos, sin) of this
@@ -184,29 +225,48 @@ class AttnLayer(nn.Module):
             q, k = rotate(q, *rot), rotate(k, *rot)
         return q, k, v
 
-    def _finish(self, x, o):
-        x = x + self.attn.output_proj(o)
+    def _ffn(self, x):
+        """norm2 -> MLP, or the experts (plus the shared experts behind
+        their sigmoid gate, in float32) -> residual.  The experts' aux loss
+        is dropped: it matters only to a training loss."""
+        if self.spec.moe:
+            h = self.norm2(x)
+            y, _ = self.moe(h)
+            if hasattr(self, "shared_mlp"):
+                g = torch.sigmoid((h @ self.shared_gate).float())
+                y = y + (g * self.shared_mlp(h).float()).to(y.dtype)
+            return x + y
         if self.spec.mlp is not None:
-            x = x + self.mlp(self.norm2(x))
+            return x + self.mlp(self.norm2(x))
         return x
 
-    def full(self, x, rot, *, want_cache: bool):
+    def full(self, x, rot, *, want_cache: bool, enc_out=None):
         """Train/prefill over the whole sequence.  Returns (y, {k, v} | None),
         the cache entry sized to its slot (a ring of ``window`` slots when
         the sequence is longer: slot j holds the last token with
-        ``pos % window == j``)."""
+        ``pos % window == j``); a cross layer projects the cross K/V from
+        ``enc_out`` [B, T, d] and adds them to its entry as ``xk``/``xv``."""
         S = x.shape[1]
         q, k, v = self._qkv(x, rot)
         o = flash_attention(q, k, v, self.layout, causal=self.spec.causal,
                             window=self.spec.window)
-        x = self._finish(x, o)
+        x = x + self.attn.output_proj(o)
+        if self.spec.cross:
+            xq = self.cross.project_q(self.norm_x(x))
+            xk, xv = self.cross.project_kv(enc_out)
+            x = x + self.cross.output_proj(cross_attention(xq, xk, xv,
+                                                           self.layout))
+        x = self._ffn(x)
         if not want_cache:
             return x, None
         w = self.spec.window
         if w is not None and S > w:
             k = torch.roll(k[:, -w:], S % w, dims=1)
             v = torch.roll(v[:, -w:], S % w, dims=1)
-        return x, {"k": k, "v": v}
+        entry = {"k": k, "v": v}
+        if self.spec.cross:
+            entry["xk"], entry["xv"] = xk, xv
+        return x, entry
 
     def decode(self, x, rot, entry, step: "DecodeStep"):
         """One token against a cache entry [B, Sc, KVs, Dh], written in
@@ -220,7 +280,14 @@ class AttnLayer(nn.Module):
         vc.index_copy_(1, idx, v.to(vc.dtype))
         o = decode_attention(q, kc, vc, step.valid, cache_pos, self.layout,
                              window=self.spec.window)
-        return self._finish(x, o)
+        x = x + self.attn.output_proj(o)
+        if self.spec.cross:
+            xk, xv = entry["xk"], entry["xv"]
+            valid, pos = step.every_slot(xk.shape[1])
+            xq = self.cross.project_q(self.norm_x(x))
+            x = x + self.cross.output_proj(decode_attention(
+                xq, xk, xv, valid, pos, self.layout))
+        return self._ffn(x)
 
 
 class SsmLayer(nn.Module):
@@ -234,7 +301,7 @@ class SsmLayer(nn.Module):
         self.ssm = ssm_mod.Mamba(ssm_mod.ssm_dims(cfg.ssm, cfg.d_model),
                                  dtype, device, generator)
 
-    def full(self, x, rot, *, want_cache: bool):
+    def full(self, x, rot, *, want_cache: bool, enc_out=None):
         """Prefill from scratch: (y, {conv, ssm} | None), the final states."""
         y, state = self.ssm(self.norm(x))
         return x + y, (state if want_cache else None)
@@ -256,7 +323,8 @@ class DecodeStep:
     reference's dynamic_update_slice does, and slot j holds position j.
     Window layers with ``Sc <= window`` are a ring: they write slot
     ``cache_len % Sc``, and after the write slot j holds position
-    ``cache_len - ((cache_len - j) mod Sc)``."""
+    ``cache_len - ((cache_len - j) mod Sc)``.  Cross-attention reads a cache
+    whose every slot is valid (``every_slot``)."""
 
     def __init__(self, cache_len, batch: int, device):
         self.clen = torch.as_tensor(cache_len, device=device).to(torch.int32)
@@ -279,6 +347,20 @@ class DecodeStep:
                                 pos.expand(self.batch, Sc))
         return self._slots[key]
 
+    def every_slot(self, Sc: int):
+        """(valid length [B] = Sc, slot positions [B, Sc]) int32, for a
+        cache of ``Sc`` slots all valid: whisper's encoder context, which
+        the reference's decode attends with ``cache_len = T``."""
+        key = (Sc, "all")
+        if key not in self._slots:
+            dev = self.clen.device
+            self._slots[key] = (
+                torch.full((1,), Sc, dtype=torch.int32,
+                           device=dev).expand(self.batch),
+                torch.arange(Sc, dtype=torch.int32,
+                             device=dev).expand(self.batch, Sc))
+        return self._slots[key]
+
 
 # ---------------------------------------------------------------------------
 # the model
@@ -286,7 +368,8 @@ class DecodeStep:
 
 
 class Model(nn.Module):
-    """Embedding, stages of ``AttnLayer`` periods, final norm, logits.
+    """Embedding, stages of ``AttnLayer``/``SsmLayer`` periods, final norm,
+    logits; whisper's encoder stage and ``enc_norm`` besides.
 
     ``generator`` draws the weights as the reference's ``init_params``
     shapes them (normal, 1/sqrt(d_in) for dense weights, 0.02 for
@@ -315,6 +398,12 @@ class Model(nn.Module):
             # one copy, looked up by every period (``_layer``)
             self.shared_block = AttnLayer(self.plan[0].specs[0], cfg,
                                           self.layout, device, generator)
+        # whisper's encoder stage (None elsewhere), and the stages tokens
+        # run through, each with a cache
+        self.encoder_stage = next((s for s in self.plan if s.encoder), None)
+        self.decoder_stages = [s for s in self.plan if not s.encoder]
+        if self.encoder_stage is not None:
+            self.enc_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
 
         def layer(spec):
             if spec.kind == "ssm":
@@ -366,20 +455,49 @@ class Model(nn.Module):
                 out[spec] = None
         return out
 
+    def _embed_tokens(self, tokens, start=0):
+        """Token embeddings; whisper's decoder adds the sinusoidal
+        embedding of positions ``start + arange(S)`` (``start`` is a
+        device tensor at decode: no host sync)."""
+        x = F.embedding(tokens, self.embed)
+        if self.cfg.family == "audio":
+            pos = start + torch.arange(tokens.shape[1], device=self.device)
+            x = x + sinusoid_embed(pos, self.cfg.d_model).to(x.dtype)[None]
+        return x
+
+    def _encode(self, frames):
+        """Whisper's encoder: frames [B, T, d] (the conv frontend is a stub)
+        plus sinusoidal positions -> the encoder stage's bidirectional,
+        rope-free layers (B3) -> ``enc_norm``."""
+        T = frames.shape[1]
+        x = frames + sinusoid_positions(T, self.cfg.d_model,
+                                        frames.device).to(frames.dtype)[None]
+        stage = self.encoder_stage
+        for period in self.stages[stage.name]:
+            for li, spec in enumerate(stage.specs):
+                x, _ = period[f"layer{li}"].full(x, None, want_cache=False)
+        return self.enc_norm(x)
+
     def backbone(self, tokens, extras=None, *, want_cache: bool = False):
         """Embeddings -> stages -> final norm.  Returns (hidden [B, S, d],
-        cache | None)."""
+        cache | None).  Whisper takes ``extras["frames"]`` [B, T, d]."""
         extras = extras or {}
+        enc_out = None
+        if self.encoder_stage is not None:
+            if "frames" not in extras:
+                raise ValueError(f"{self.cfg.name} encodes extras['frames'] "
+                                 f"[B, T, d] before its decoder")
+            enc_out = self._encode(extras["frames"])
         S = tokens.shape[1]
-        x = F.embedding(tokens, self.embed)
+        x = self._embed_tokens(tokens)
         rot = self._rotations(torch.arange(S, device=self.device), extras)
         cache: Dict[str, dict] = {}
-        for stage in self.plan:
+        for stage in self.decoder_stages:
             entries = {f"layer{li}": [] for li in range(len(stage.specs))}
             for period in self.stages[stage.name]:
                 for li, spec in enumerate(stage.specs):
                     x, e = self._layer(period, li, spec).full(
-                        x, rot[spec], want_cache=want_cache)
+                        x, rot[spec], want_cache=want_cache, enc_out=enc_out)
                     if want_cache:
                         entries[f"layer{li}"].append(e)
             if want_cache:
@@ -406,8 +524,8 @@ class Model(nn.Module):
         states into ``cache`` in place; returns (logits [B, 1, Vp], cache)."""
         step = DecodeStep(cache_len, tokens.shape[0], self.device)
         rot = self._rotations(step.clen.reshape(1, 1), extras or {})
-        x = F.embedding(tokens, self.embed)
-        for stage in self.plan:
+        x = self._embed_tokens(tokens, step.clen)
+        for stage in self.decoder_stages:
             for p, period in enumerate(self.stages[stage.name]):
                 for li, spec in enumerate(stage.specs):
                     key = f"layer{li}"
@@ -457,18 +575,24 @@ def _entry_specs(spec: LayerSpec, cfg: ModelConfig, layout, batch: int,
         dims = ssm_mod.ssm_dims(cfg.ssm, cfg.d_model)
         return ssm_mod.ssm_state_specs(dims, batch, dtype)
     sc = min(seq, spec.window) if spec.window is not None else seq
-    shape = (batch, sc, layout.kv_store, layout.d_head)
+    shapes = {n: (batch, sc, layout.kv_store, layout.d_head)
+              for n in ("k", "v")}
+    if spec.cross:
+        shapes.update({n: (batch, cfg.encdec.n_encoder_ctx, layout.kv_store,
+                           layout.d_head) for n in ("xk", "xv")})
     return {n: torch.empty(shape, dtype=dtype, device="meta")
-            for n in ("k", "v")}
+            for n, shape in shapes.items()}
 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq: int):
     """The cache tree of prefill/decode as ``meta`` tensors (shape and
     dtype): window layers hold ``min(seq, window)`` slots, ssm layers
-    their fixed-size states."""
+    their fixed-size states, cross layers the encoder context's K/V."""
     layout = _layout(cfg)
     out = {}
     for stage in build_plan(cfg):
+        if stage.encoder:
+            continue
         st = {}
         for li, spec in enumerate(stage.specs):
             st[f"layer{li}"] = {
@@ -482,8 +606,8 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int):
 
 def grow_cache(cache, cfg: ModelConfig, batch: int, seq: int):
     """A prefill cache zero-padded to ``cache_specs(cfg, batch, seq)``, as
-    the reference's callers pad theirs before decoding (ssm states keep
-    their size and are copied)."""
+    the reference's callers pad theirs before decoding (ssm states and the
+    cross K/V keep their size and are copied)."""
     out = {}
     for stage, layers in cache_specs(cfg, batch, seq).items():
         out[stage] = {}

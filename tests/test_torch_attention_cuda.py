@@ -28,6 +28,11 @@ B3's tensor-core route (bf16 at D 64/128/256) has cases of its own
 (``wgmma_flash_cases``): every D, sequence lengths around a tile (1, 63,
 64, 65, 100, 512), causal, bidirectional and window 16, GQA groups of 1, 7
 and 48, batches of 1 and 3, all through the model's [B, S, H, D] views.
+Whisper-small's shapes have their own (``whisper_flash``,
+``whisper_cross_decode``): B3 over its encoder's 8 x 1,500 frames,
+bidirectional, 12/12 heads at D 64 (1,500 is no multiple of the 64-row
+tile), and B2 over its cross-attention's 1,500 slots, all valid, for 8
+rows, in bf16 (the model path's) and float32.
 B2's split over the cache has its own (``split_decode_cases``): split
 counts from 1 to one per tile, a row with no kept slot (all its splits
 masked: the uniform mean of V), a ring whose kept slots lie in one split,
@@ -205,6 +210,31 @@ def wgmma_flash(device, *, D, S, mask, r, B):
     return c
 
 
+# whisper-small: 8 rows, its encoder's 1,500 frames, 12/12 heads at D 64
+WHISPER = dict(B=8, T=1500, H=12, KV=12, D=64)
+
+
+def whisper_flash(device, dtype) -> dict:
+    """B3 at whisper's encoder: bidirectional over 8 x 1,500 frames."""
+    w = WHISPER
+    c = model_flash(device, dtype, B=w["B"], S=w["T"], H=w["H"], KV=w["KV"],
+                    D=w["D"])
+    c["causal"] = False
+    return c
+
+
+def whisper_cross_decode(device, dtype) -> dict:
+    """B2 at whisper's cross-attention decode: 8 rows over the encoder's
+    1,500 slots, every slot valid (the model's ``DecodeStep.every_slot``:
+    a broadcast length, linear positions)."""
+    w = WHISPER
+    c = model_decode(device, dtype, B=w["B"], Sc=w["T"], H=w["H"],
+                     KV=w["KV"], D=w["D"])
+    c["cache_len"] = torch.full((1,), w["T"], dtype=torch.int32,
+                                device=device).expand(w["B"])
+    return c
+
+
 def split_decode_cases():
     """[(id, case, n_splits)]: numpy B2 inputs with a forced split count
     (None: the wrapper's rule).  The case names say what each holds."""
@@ -331,6 +361,25 @@ def test_kernels_at_the_model_path_shapes(cuda_device, dtype, arch):
         got = run_decode(decode_attention_bhd, c)
         torch.cuda.synchronize()
         _check("decode", got, run_decode(decode_attention_reference, c), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_kernels_at_whisper_shapes(cuda_device, dtype):
+    """B3 over whisper's 1,500 encoder frames, bidirectional (bf16 on the
+    tensor-core route), and B2 over its 1,500 cross-attention slots."""
+    c = whisper_flash(cuda_device, DTYPES[dtype])
+    before = dict(flash_attention_bhsd.launches_by_route)
+    got = run_flash(flash_attention_bhsd, c)
+    torch.cuda.synchronize()
+    if dtype == "bfloat16":
+        assert flash_attention_bhsd.launches_by_route["wgmma"] == \
+            before["wgmma"] + 1
+    _check("flash", got, run_flash(flash_attention_reference, c), dtype)
+    c = whisper_cross_decode(cuda_device, DTYPES[dtype])
+    got = run_decode(decode_attention_bhd, c)
+    torch.cuda.synchronize()
+    _check("decode", got, run_decode(decode_attention_reference, c), dtype)
 
 
 @pytest.mark.cuda

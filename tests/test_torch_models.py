@@ -1,9 +1,12 @@
 """The port's model path against the JAX package's, on the CPU.
 
-For each ported architecture (the attention-only qwen2-0.5b, olmo-1b,
-granite-20b, gemma3-12b and qwen2-vl-7b; the Mamba-1 falcon-mamba-7b; the
-hybrid zamba2-1.2b, Mamba-2 layers around one shared attention block) at
-the conftest ``tiny`` size in float32, the
+For each of the ten architectures (the attention-only qwen2-0.5b,
+olmo-1b, granite-20b, gemma3-12b and qwen2-vl-7b; the Mamba-1
+falcon-mamba-7b; the hybrid zamba2-1.2b, Mamba-2 layers around one shared
+attention block; the moe granite-moe-3b-a800m and qwen2-moe-a2.7b, the
+latter with shared experts; the encoder-decoder whisper-small, fed the
+same random frames for its encoder at ``forward`` and ``prefill``) at the
+conftest ``tiny`` size in float32, the
 JAX package's ``init_params`` tree is perturbed in numpy (QKV biases and
 norm scales away from their zero/one initial values, so those paths
 compute something) and carried into the port with
@@ -39,7 +42,8 @@ from repro_torch.models.convert import cache_from_reference, params_from_referen
 from conftest import tiny
 
 ARCHS = ("qwen2-0.5b", "olmo-1b", "granite-20b", "gemma3-12b", "qwen2-vl-7b",
-         "falcon-mamba-7b", "zamba2-1.2b")
+         "falcon-mamba-7b", "zamba2-1.2b", "granite-moe-3b-a800m",
+         "qwen2-moe-a2.7b", "whisper-small")
 TOL = dict(atol=1e-4, rtol=1e-4)
 B, S, N_DEC = 2, 12, 4
 
@@ -76,6 +80,13 @@ def mrope(start, length):
     return np.broadcast_to(thw[:, None], (3, B, length)).copy()
 
 
+def frames(cfg, seed: int = 7):
+    """Random encoder frames [B, T, d] for whisper's family, float32."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal(
+        (B, cfg.encdec.n_encoder_ctx, cfg.d_model)).astype(np.float32)
+
+
 def leaves(tree, prefix=""):
     for key, val in sorted(tree.items()):
         if isinstance(val, dict):
@@ -102,13 +113,18 @@ def both(request):
     model = params_from_reference(tree, tcfg, "cpu")
     toks = rng.integers(0, jcfg.vocab_size, (B, S)).astype(np.int32)
     fed = rng.integers(0, jcfg.vocab_size, (N_DEC, B, 1)).astype(np.int32)
-    vlm = jcfg.family == "vlm"
+    vlm, audio = jcfg.family == "vlm", jcfg.family == "audio"
+    enc = frames(jcfg) if audio else None
 
     def extras(start, length, lib):
-        if not vlm:
-            return {}
+        """M-RoPE positions for qwen2-vl; the frames for whisper's forward
+        and prefill (its decode reads the cross K/V from the cache)."""
         conv = jnp.asarray if lib == "jax" else torch.from_numpy
-        return {"mrope_positions": conv(mrope(start, length))}
+        if vlm:
+            return {"mrope_positions": conv(mrope(start, length))}
+        if audio and start == 0:
+            return {"frames": conv(enc)}
+        return {}
 
     j_fwd = jax.jit(JM.forward, static_argnums=(1,))
     j_pre = jax.jit(JM.prefill, static_argnums=(1,))
@@ -210,6 +226,8 @@ def test_decode_multi_equals_stepwise_greedy(both):
                          generator=torch.Generator().manual_seed(0))
     ext = ({"mrope_positions": torch.from_numpy(mrope(0, S))}
            if cfg.family == "vlm" else {})
+    if cfg.family == "audio":
+        ext = {"frames": torch.from_numpy(frames(cfg))}
     step_ext = ({"mrope_positions": torch.from_numpy(mrope(S, 1))}
                 if cfg.family == "vlm" else {})
     logits, cache = model.prefill(toks, ext)
@@ -246,17 +264,6 @@ def test_cache_specs_match_prefill(both):
              for k, t in leaves(TM.cache_specs(both["cfg"], B, S))}
     got = {k: tuple(t.shape) for k, t in leaves(both["torch"]["prefill_cache"])}
     assert specs == got
-
-
-@pytest.mark.parametrize("name", ["whisper-small", "granite-moe-3b-a800m",
-                                  "qwen2-moe-a2.7b"])
-def test_unported_families_raise(name):
-    from repro_torch.configs import get_config
-    cfg = get_config(name)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        TM.build_plan(cfg)
-    with pytest.raises(NotImplementedError):
-        TM.Model(cfg, device="meta")
 
 
 def test_model_defaults_to_the_card(monkeypatch):
@@ -304,8 +311,7 @@ def test_quickstart_runs_on_the_cpu():
     assert "generated ids:" in proc.stdout and proc.stdout.endswith("ok\n")
 
 
-@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
-def test_quickstart_runs_the_ssm_archs_on_the_cpu(arch):
+def run_quickstart(arch: str) -> str:
     from repro_torch.launch import quickstart
     import contextlib
     import io
@@ -313,7 +319,20 @@ def test_quickstart_runs_the_ssm_archs_on_the_cpu(arch):
     with contextlib.redirect_stdout(out):
         quickstart.main(["--device", "cpu", "--arch", arch,
                          "--new-tokens", "3"])
-    text = out.getvalue()
+    return out.getvalue()
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-1.2b"])
+def test_quickstart_runs_the_ssm_archs_on_the_cpu(arch):
+    text = run_quickstart(arch)
+    assert f"arch={arch}" in text and text.endswith("ok\n")
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m", "qwen2-moe-a2.7b",
+                                  "whisper-small"])
+def test_quickstart_runs_the_moe_and_audio_archs_on_the_cpu(arch):
+    """The moe archs, and whisper with zero frames for its encoder."""
+    text = run_quickstart(arch)
     assert f"arch={arch}" in text and text.endswith("ok\n")
 
 
@@ -342,6 +361,54 @@ def test_convert_carries_the_ssm_and_shared_leaves():
         np.testing.assert_array_equal(t.float().numpy(),
                                       val.astype(np.float32), err_msg=key)
     assert got["stages.hybrid.0.layer1.ssm.A_log"].dtype == torch.float32
+
+
+@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "whisper-small"])
+def test_convert_carries_the_moe_and_whisper_leaves(arch):
+    """In bfloat16, ``params_from_reference`` fills every leaf of the moe
+    layers (router, experts, shared experts and their gate) and of
+    whisper (the encoder stage, ``enc_norm``, ``norm_x`` and ``cross``)
+    bit for bit, the router float32; a missing or an extra leaf raises."""
+    jcfg = tiny(arch).scaled(dtype="bfloat16")
+    tree = jax.tree.map(np.asarray, JM.init_params(jax.random.PRNGKey(0),
+                                                   jcfg))
+    model = params_from_reference(tree, port_config(jcfg), "cpu")
+    got = dict(model.named_parameters())
+    stages = {s.name for s in JM.build_plan(jcfg)}
+    want = {}
+    for key, val in leaves(tree):
+        stage, _, rest = key.partition(".")
+        if stage in stages:
+            for p in range(val.shape[0]):
+                want[f"stages.{stage}.{p}.{rest}"] = val[p]
+        else:
+            want[key] = val
+    assert got.keys() == want.keys()
+    for key, val in want.items():
+        t = got[key].detach()
+        assert str(t.dtype).split(".")[-1] == str(val.dtype), key
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      val.astype(np.float32), err_msg=key)
+    names = set(got)
+    if arch == "whisper-small":
+        assert "enc_norm.scale" in names
+        assert {"stages.encoder.0.layer0.attn.wq",
+                "stages.decoder.0.layer0.cross.bk",
+                "stages.decoder.0.layer0.norm_x.bias"} <= names
+    else:
+        router = got["stages.moe.0.layer0.moe.router"]
+        assert router.dtype == torch.float32
+        assert {"stages.moe.0.layer0.shared_gate",
+                "stages.moe.0.layer0.shared_mlp.w_down",
+                "stages.moe.0.layer0.moe.w_gate"} <= names
+    stage = sorted(stages)[-1]
+    short = dict(tree, **{stage: {k: v for k, v in tree[stage].items()
+                                  if k != "layer0"}})
+    with pytest.raises(KeyError, match="no reference weights"):
+        params_from_reference(short, port_config(jcfg), "cpu")
+    extra = dict(tree, stray=np.zeros(3, np.float32))
+    with pytest.raises(KeyError, match="no parameter"):
+        params_from_reference(extra, port_config(jcfg), "cpu")
 
 
 def test_quickstart_without_a_card_raises(monkeypatch):
