@@ -165,10 +165,41 @@ fails:
    retried with the next prompt seed, at most three); then B3 at
    whisper's encoder shape (8 x 1,500, bidirectional) and B2 at its
    cross-attention decode (8 rows x 1,500 slots) held to their plain
-   versions and timed as phase 10 times B3 and B2.
+   versions and timed as phase 10 times B3 and B2;
+25. the calibration on the card: ``repro_torch.launch.dryrun.
+   emit_devmodel("qwen2-0.5b")`` at full width in bf16 (weights and data
+   from seeded generators) times ``Model.prefill`` over prefill_32k's
+   32 x 32,768 tokens and one ``decode_step`` of decode_32k's 128 rows
+   over a cache of 32,768 slots filled from the generator (a batch is
+   halved only where the card's memory does not hold it, and the record
+   lists each cut), CUDA events, the median of three calls after a
+   warm-up; every coefficient must be finite and positive, ``measured_on``
+   must name this card and its power limit in W, B3 (all on ``wgmma``)
+   and B2 must have launched 24 times in each of the four calls; the
+   record is logged as JSON; then ``serve --backend emulated --devmodel
+   <that file>`` as a subprocess, and every request must complete; then
+   B3 at 1 x 32,768 (qwen2-0.5b's heads, causal) and B2 at the decode
+   step's 128 rows x 32,768 slots, shapes no earlier phase runs, held to
+   their plain versions on the same inputs (B3's computed in query chunks,
+   itself first held to the plain version at a small shape) at phase
+   9's bf16 tolerances and timed as phase 10 times them;
+26. the DES on the card's coefficients: ``repro_torch.sim``'s
+   attacker/victim workload (core_sweep_sim's defaults) at tp 1 over tp+1
+   .. 16 tp cores on ``llama8b_tp4_params`` with its device and the
+   scheduler's preemption calibration replaced by phase 25's
+   ``DeviceModel``; victim TTFT and CPU saturation per core count, and
+   fewer cores may never give a lower TTFT (the reference's
+   ``test_fewer_cores_is_never_faster``, 0.1%);
+27. the attacker/victim example on the card: ``python -m
+   repro_torch.launch.serve_contention --backend torch --arch
+   qwen2-0.5b`` as a subprocess (run with phases 16-18, before this
+   process touches the card); both runs (idle, then 12 attackers)
+   complete without a victim timeout and launch B1; the victim's TTFT,
+   tokenize and dequeue p95, each worker's start-up and the start-up's
+   share of the TTFT are logged.
 
-The line before the last is the ``kernels`` JSON; the last line is
-``{"ok": true, "device": {...}}``.
+The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
+phases above); the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -206,16 +237,12 @@ COMPOSITE = ("handoffs", "handoff_blocks", "spec_steps", "drafted",
              "accepted")
 
 
-def serve(*extra: str, tp: int = 2) -> dict:
-    """Run the port's serve CLI at qwen2-0.5b widths, ``extra`` naming the
-    backend and its options; returns completion, the workers' summed
-    kernel launches (each replica's too in fleet mode, and each must be
-    above 0), TTFT p50, wall time, the composite backends' counters summed
-    over the workers and the fleet's per-replica request counts."""
-    cmd = [sys.executable, "-m", "repro_torch.launch.serve",
-           "--arch", "qwen2-0.5b", "--tp", str(tp),
-           "--cores", "6", "--requests", "8", "--rps", "16",
-           "--words", "400", "--max-new", "16", *extra]
+def run_module(module: str, *args: str) -> tuple:
+    """Run ``python -m module args`` from the checkout in a session of its
+    own, log its output and fail the run on a non-zero exit; returns (the
+    output, wall seconds).  At the time limit the whole process group is
+    killed."""
+    cmd = [sys.executable, "-m", module, *args]
     env = dict(os.environ, PYTHONPATH=str(SRC))
     t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -230,9 +257,23 @@ def serve(*extra: str, tp: int = 2) -> dict:
     wall = time.perf_counter() - t0
     for line in out.splitlines():
         log(f"  {line}")
-    what = " ".join(extra)
     if proc.returncode != 0:
-        fail(f"serve {what} exited {proc.returncode}")
+        fail(f"{module} {' '.join(args)} exited {proc.returncode}")
+    return out, wall
+
+
+def serve(*extra: str, tp: int = 2, launched: bool = True) -> dict:
+    """Run the port's serve CLI at qwen2-0.5b widths, ``extra`` naming the
+    backend and its options; returns completion, the workers' summed
+    kernel launches (each replica's too in fleet mode, and each must be
+    above 0 unless ``launched`` is False, for the emulated backend), TTFT
+    p50, wall time, the composite backends' counters summed over the
+    workers and the fleet's per-replica request counts."""
+    out, wall = run_module(
+        "repro_torch.launch.serve", "--arch", "qwen2-0.5b", "--tp", str(tp),
+        "--cores", "6", "--requests", "8", "--rps", "16", "--words", "400",
+        "--max-new", "16", *extra)
+    what = " ".join(extra)
     done = re.search(r"\[(?:serve|fleet)\] completed (\d+)/(\d+)", out)
     launches = [int(n) for n in re.findall(r"kernel_launches=(\d+)", out)]
     if not done or not launches:
@@ -240,7 +281,7 @@ def serve(*extra: str, tp: int = 2) -> dict:
     n_done, n_req = int(done.group(1)), int(done.group(2))
     if n_done != n_req:
         fail(f"serve {what} completed {n_done}/{n_req}")
-    if min(launches) <= 0:
+    if launched and min(launches) <= 0:
         fail(f"serve {what}: the kernel was never launched "
              f"(per replica: {launches})")
     ttft = re.search(r"TTFT p50=([\d.]+)ms", out)
@@ -314,6 +355,9 @@ def main() -> None:
                   "affinity", tp=1)
     if len(fleet["replica_launches"]) != 2:
         fail(f"fleet serve reported {fleet['replica_launches']} replicas")
+    # 27. the attacker/victim example on TorchBackend, also before this
+    # process touches the card's memory
+    contention()
     t_comp = time.perf_counter() - t_comp
 
     from repro_torch.kernels.paged_decode_attention import (
@@ -410,11 +454,17 @@ def main() -> None:
                          encdec=EncDecConfig(n_encoder_layers=2,
                                              n_encoder_ctx=1500))
     entries += time_whisper(dev, whisper)
+
+    # 25.-26. the calibration on the card, then the DES on its coefficients
+    t_cal = time.perf_counter()
+    rec, long_kernels = calibration(dev, ROOT / "build" / "devmodel")
+    entries += long_kernels
+    des_sweep(rec["device_model"])
     now = time.perf_counter()
     log(f"phases 1-10 and 19-20 took {t_ssm - t_start - t_comp:.1f} s, "
         f"phases 11-15 {t_moe - t_ssm:.1f} s, phases 21-24 "
-        f"{now - t_moe:.1f} s, the serve runs of phases 16-18 "
-        f"{t_comp:.1f} s")
+        f"{t_cal - t_moe:.1f} s, phases 25-26 {now - t_cal:.1f} s, the "
+        f"serve runs of phases 16-18 and 27 {t_comp:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1297,12 +1347,16 @@ def time_attention(dev, launches: dict) -> list:
     return out
 
 
-def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True) -> dict:
+def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True,
+               plain=None) -> dict:
+    """B3 at one shape, held to ``plain`` (default: its plain version)
+    on the timed inputs, then timed beside it, SDPA and its bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
         flash_attention_bhsd, flash_attention_reference, route)
+    plain = plain or flash_attention_reference
     cases = _attention_cases()
     c = cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H, KV=KV, D=D)
     c["causal"] = causal
@@ -1311,7 +1365,7 @@ def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True) -> dict:
     name = f"flash_attention_bf16_b{B}_s{S}" + (
         "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}") + (
         "" if causal else "_bidir")
-    want = cases.run_flash(flash_attention_reference, c)
+    want = cases.run_flash(plain, c)
     err = _held_to_plain(got, want, name, "flash")
 
     def sdpa():
@@ -1322,7 +1376,7 @@ def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True) -> dict:
         fail("SDPA yardstick does not compute flash attention's function")
     ms, plain_ms = _time_pair(
         lambda: cases.run_flash(flash_attention_bhsd, c),
-        lambda: cases.run_flash(flash_attention_reference, c))
+        lambda: cases.run_flash(plain, c))
     library_ms = cuda_ms(sdpa)
     nbytes = 2 * (2 * B * S * H * D + 2 * B * S * KV * D)  # q, o, k, v
     pairs = S * (S + 1) // 2 if causal else S * S           # kept pairs
@@ -1348,7 +1402,11 @@ def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True) -> dict:
             "library_ms": library_ms}
 
 
-def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64) -> dict:
+def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64,
+                case=None) -> dict:
+    """B2 at one shape, every row's Sc slots valid, held to its plain
+    version on the timed inputs, then timed beside it, SDPA and its bound;
+    ``case`` gives the inputs (default: the tests' ``model_decode``)."""
     import torch
     import torch.nn.functional as F
 
@@ -1356,7 +1414,8 @@ def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64) -> dict:
         ROW_GROUP, choose_splits, decode_attention_bhd,
         decode_attention_reference, split_ranges, tile_slots)
     cases = _attention_cases()
-    c = cases.model_decode(dev, torch.bfloat16, B=B, Sc=Sc, H=H, KV=KV, D=D)
+    c = case or cases.model_decode(dev, torch.bfloat16, B=B, Sc=Sc, H=H,
+                                   KV=KV, D=D)
     c["cache_len"] = torch.full((B,), Sc, dtype=torch.int32, device=dev)
     got = cases.run_decode(decode_attention_bhd, c)
     name = f"decode_attention_bf16_b{B}_s{Sc}" + (
@@ -1534,6 +1593,253 @@ def time_scan(dev, launches: int) -> list:
                     "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": bound_by, "library_ms": None})
     return out
+
+
+# -- phases 25-27: the calibration, the DES on it, the contention example ---
+
+CALIBRATED = "qwen2-0.5b"
+
+
+def calibration(dev, out_dir: Path) -> dict:
+    """Phase 25: ``emit_devmodel`` for qwen2-0.5b on the card as published
+    (bf16; the cells prefill_32k and decode_32k, a batch halved only where
+    it does not fit), B3 and B2 counted over the run (every count set to 0
+    just before it, read just after); every coefficient finite and
+    positive, ``measured_on`` naming this card; then the emulated serve
+    run on the emitted file.  Returns the record."""
+    import torch
+
+    from repro_torch.kernels.decode_attention import decode_attention_bhd
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.launch import dryrun
+
+    flash_attention_bhsd.launches = decode_attention_bhd.launches = 0
+    by_route = flash_attention_bhsd.launches_by_route
+    for r in by_route:
+        by_route[r] = 0
+    t0 = time.perf_counter()
+    rec = dryrun.emit_devmodel(CALIBRATED, out_dir, device=dev)
+    wall = time.perf_counter() - t0
+    flash, decode = (flash_attention_bhsd.launches,
+                     decode_attention_bhd.launches)
+    routes = dict(by_route)
+    log(f"devmodel {json.dumps(rec)}")
+    dm, on = rec["device_model"], rec["measured_on"]
+    if not all(math.isfinite(v) for v in dm.values()):
+        fail(f"calibration: a coefficient is not finite: {dm}")
+    timed = ("t_fixed", "t_prefill_tok", "t_decode_seq", "t_block_entry",
+             "t_swap_block", "max_step")
+    if not all(dm[k] > 0 for k in timed):
+        fail(f"calibration: a coefficient is not positive: {dm}")
+    name = torch.cuda.get_device_name(dev)
+    if not re.fullmatch(rf"{re.escape(name)}, \d+(\.\d+)? W",
+                        on["device"]):
+        fail(f"calibration measured on {on['device']!r}, want {name!r} "
+             f"and its power limit in W")
+    # one prefill and one decode step per call: the warm-up and REPEATS
+    # timed calls, and more only where a batch was halved after running
+    # out of memory part way
+    want = (1 + dryrun.REPEATS) * layer_calls(CALIBRATED, "attn")
+    if ((flash, decode) != (want, want) and not on["cuts"]) or min(
+            flash, decode) < want or routes["wgmma"] != flash:
+        fail(f"calibration launched B3 {flash} times ({routes}) and B2 "
+             f"{decode} times, want {want} each, B3 all on wgmma")
+    (pre_ms, pre_by), (dec_ms, dec_by) = calibration_bounds(on)
+    log(f"calibration bounds: prefill {pre_ms:.3f} ms ({pre_by}), "
+        f"{pre_ms / (on['prefill']['seconds'] * 1e3):.3f} of it reached; "
+        f"decode step {dec_ms:.3f} ms ({dec_by}), "
+        f"{dec_ms / (on['decode']['seconds'] * 1e3):.3f} of it reached")
+    log(f"calibration {CALIBRATED} in {wall:.1f} s: t_prefill_tok "
+        f"{dm['t_prefill_tok']!r} s from prefill {on['prefill']['batch']} x "
+        f"{on['prefill']['seq_len']} in {on['prefill']['seconds']!r} s, "
+        f"t_decode_seq {dm['t_decode_seq']!r} s from a decode step of "
+        f"{on['decode']['batch']} rows over {on['decode']['cache_len']} "
+        f"slots in {on['decode']['seconds']!r} s; cuts: "
+        f"{'; '.join(on['cuts']) or 'none'}; launches B3 {flash} "
+        f"({routes}), B2 {decode}")
+    serve("--backend", "emulated", "--devmodel",
+          str(Path(out_dir) / f"devmodel__{CALIBRATED}.json"),
+          launched=False)
+    return rec, calibration_kernels(dev, on, {"flash": flash,
+                                              "decode": decode})
+
+
+def calibration_kernels(dev, on: dict, launches: dict) -> list:
+    """B3 and B2 at the calibration's sequence length, which no earlier
+    phase runs, held to their plain versions on the same inputs and timed
+    as phase 10 times them: B3 at batch 1 over the prefill cell's 32,768
+    tokens (the grid and the index arithmetic over S are what is new;
+    the plain version is computed in query chunks), B2 at the decode
+    step's rows over its 32,768 slots (the cache drawn on the card)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    cfg = get_config(CALIBRATED)
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    _chunked_is_plain(dev)
+    B, Sc = on["decode"]["batch"], on["decode"]["cache_len"] + 1
+    g = torch.Generator(dev).manual_seed(Sc + H)
+    kc, vc = (torch.randn((B, Sc, KV, D), generator=g, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    q = torch.randn((B, H, D), generator=g, device=dev, dtype=torch.bfloat16)
+    decode = dict(q=q, k=kc.transpose(1, 2), v=vc.transpose(1, 2),
+                  cache_len=torch.full((B,), Sc, dtype=torch.int32,
+                                       device=dev),
+                  positions=torch.arange(Sc, dtype=torch.int32,
+                                         device=dev).expand(B, Sc),
+                  window=None)
+    return [time_flash(dev, launches, 1, on["prefill"]["seq_len"], H, KV, D,
+                       plain=flash_plain_chunked),
+            time_decode(dev, launches, B, Sc, H, KV, D, case=decode)]
+
+
+def flash_plain_chunked(q, k, v, *, causal: bool = True, window=None,
+                        chunk: int = 1024):
+    """``flash_attention_reference``'s formula term for term (float32
+    scores over 1/sqrt(D), the causal and window masks at NEG_INF, softmax,
+    P V, cast back), ``chunk`` query rows at a time: at S 32,768 one
+    head's whole score matrix is 4 GiB in float32."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import NEG_INF
+    shape = q.shape
+    if q.dim() == 4:
+        q, k, v = (t.reshape(-1, *t.shape[2:]) for t in (q, k, v))
+    BH, S, D = q.shape
+    r = BH // k.shape[0]
+    kx = torch.repeat_interleave(k, r, dim=0).float()
+    vx = torch.repeat_interleave(v, r, dim=0).float()
+    kpos = torch.arange(S, device=q.device)[None, :]
+    out = torch.empty((BH, S, D), dtype=q.dtype, device=q.device)
+    for lo in range(0, S, chunk):
+        hi = min(S, lo + chunk)
+        s = torch.einsum("hqd,hkd->hqk", q[:, lo:hi].float(), kx) / (D ** 0.5)
+        qpos = torch.arange(lo, hi, device=q.device)[:, None]
+        mask = torch.ones((hi - lo, S), dtype=torch.bool, device=q.device)
+        if causal:
+            mask &= qpos >= kpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+        out[:, lo:hi] = torch.einsum("hqk,hkd->hqd", torch.softmax(s, dim=-1),
+                                     vx).to(q.dtype)
+    return out.reshape(shape)
+
+
+def _chunked_is_plain(dev) -> None:
+    """``flash_plain_chunked`` against ``flash_attention_reference`` in
+    float32 where the latter fits: a ragged last chunk, causal, window
+    and bidirectional, atol = rtol = 1e-5."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import flash_attention_reference
+    cases = _attention_cases()
+    for causal, window in ((True, None), (True, 64), (False, None)):
+        c = cases.model_flash(dev, torch.float32, B=2, S=300, window=window)
+        c["causal"] = causal
+        want = cases.run_flash(flash_attention_reference, c)
+        got = cases.run_flash(
+            lambda *a, **kw: flash_plain_chunked(*a, chunk=128, **kw), c)
+        if not torch.allclose(got, want, **TOL):
+            fail(f"the chunked plain flash attention is not the plain "
+                 f"version (causal {causal}, window {window}): max abs err "
+                 f"{(got - want).abs().max().item():.3g}")
+
+
+def calibration_bounds(on: dict) -> tuple:
+    """The least time of phase 25's two timed calls, each (ms, what bounds
+    it): the larger of the bytes over 3.35 TB/s (every weight read once;
+    the decode step also reads every slot's K and V) and the bf16
+    operations over 989 TFLOP/s (2 per weight and token for the matrix
+    products, 4 D per query head and kept (query, key) pair for attention,
+    the logits of the last token only)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    cfg = get_config(CALIBRATED)
+    meta = M.Model(cfg, device="meta")
+    weights = sum(p.numel() for p in meta.parameters())
+    matmul = sum(p.numel() for n, p in meta.named_parameters()
+                 if p.dim() >= 2 and n not in ("embed", "lm_head"))
+    n_attn = layer_calls(CALIBRATED, "attn")
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    logits = 2 * cfg.d_model * cfg.padded_vocab
+    B, S = on["prefill"]["batch"], on["prefill"]["seq_len"]
+    pre_ops = (2 * matmul * B * S + 4 * D * H * B * S * (S + 1) // 2 * n_attn
+               + logits * B)
+    pre_bytes = 2 * weights + 4 * B * S                  # weights, tokens
+    B, S = on["decode"]["batch"], on["decode"]["cache_len"] + 1
+    dec_ops = 2 * matmul * B + 4 * D * H * B * S * n_attn + logits * B
+    dec_bytes = 2 * weights + 2 * 2 * B * S * KV * D * n_attn
+    return tuple(_bound(nbytes, ops) for nbytes, ops in
+                 ((pre_bytes, pre_ops), (dec_bytes, dec_ops)))
+
+
+def des_sweep(device_model: dict) -> list:
+    """Phase 26: the DES's attacker/victim workload (core_sweep_sim's
+    defaults: 8 attackers a second of 114,000 tokens for 15 s, one victim)
+    at tp 1 over tp+1 .. 16 tp cores, on ``llama8b_tp4_params`` with its
+    device and the scheduler's preemption calibration replaced by phase
+    25's measured ``DeviceModel``; fewer cores may never give a lower
+    victim TTFT (within the reference test's 0.1%)."""
+    import dataclasses
+
+    from repro_torch.core.devmodel import DeviceModel
+    from repro_torch.sim.serving import (attacker_victim_workload,
+                                         llama8b_tp4_params)
+    dm = DeviceModel(**device_model)
+    tp = 1
+    rows = []
+    for cores in sorted({tp + 1, 2 * tp, 4 * tp, 8 * tp, 16 * tp}):
+        p = llama8b_tp4_params(cores, tp=tp)
+        p = dataclasses.replace(p, device=dm, scheduler=dataclasses.replace(
+            p.scheduler, **dm.preemption_calibration()))
+        res = attacker_victim_workload(
+            p, attacker_rps=8.0, attacker_tokens=114_000, n_victims=1,
+            duration=15.0, horizon=260.0)
+        ttft = res.victim_ttfts()[0]
+        rows.append((cores, ttft))
+        log(f"DES on the measured DeviceModel, tp {tp}, {cores} cores: "
+            f"victim TTFT {ttft!r} s, cpu saturation {res.saturation_s!r} s")
+    if any(t is None for _, t in rows):
+        fail(f"DES: the victim timed out: {rows}")
+    for (c0, t0), (c1, t1) in zip(rows, rows[1:]):
+        if t0 < t1 * 0.999:
+            fail(f"DES: {c0} cores gave a lower victim TTFT ({t0} s) than "
+                 f"{c1} cores ({t1} s)")
+    return rows
+
+
+def contention() -> dict:
+    """Phase 27: ``python -m repro_torch.launch.serve_contention --backend
+    torch --arch qwen2-0.5b`` (fresh workers, so their counts start at 0):
+    the idle and the attacker-load run complete without a victim timeout
+    and each launches B1; logs the victim's TTFT, tokenize and dequeue p95
+    and each worker's start-up, and the start-up's share of the TTFT."""
+    out, wall = run_module("repro_torch.launch.serve_contention",
+                           "--backend", "torch", "--arch", "qwen2-0.5b")
+    runs = {}
+    for label in ("no-load", "attacker-load"):
+        m = re.search(rf"\[{label}\] victim TTFT=([\d.]+)ms "
+                      rf"tokenize=([\d.]+)ms dequeue_p95=([\d.]+)ms", out)
+        workers = re.findall(rf"\[{label}\] worker\d+ startup=([\d.]+)s "
+                             rf"kernel_launches=(\d+)", out)
+        if not m or len(workers) != 2:
+            fail(f"serve_contention printed no {label} summary")
+        ttft, tok, dq = map(float, m.groups())
+        startup = [float(w[0]) for w in workers]
+        launches = sum(int(w[1]) for w in workers)
+        if launches <= 0:
+            fail(f"serve_contention {label}: B1 was never launched")
+        runs[label] = {"ttft_ms": ttft, "startup_s": startup,
+                       "launches": launches}
+        log(f"contention {label}: victim TTFT {ttft} ms, tokenize {tok} "
+            f"ms, dequeue p95 {dq} ms, worker start-up {startup} s "
+            f"(share of the TTFT {max(startup) * 1e3 / ttft:.3f}), B1 "
+            f"launches {launches}")
+    if "degradation under attacker load" not in out:
+        fail("serve_contention printed no degradation line")
+    log(f"contention: {wall:.1f} s wall")
+    return runs
 
 
 if __name__ == "__main__":

@@ -483,13 +483,20 @@ class ServingSystem:
         return self._last_pressure
 
     def collect(self, n: int, timeout: float = 300.0) -> Dict[int, dict]:
+        """Gather ``n`` results; raises as soon as the engine core or a
+        worker has died (its own error is on stderr) rather than waiting
+        out ``timeout``."""
         deadline = time.monotonic() + timeout
         while len(self.results) < n and time.monotonic() < deadline:
             try:
                 rec = self.out_q.get(timeout=0.2)
                 self.results[rec["req_id"]] = rec
             except queue.Empty:
-                continue
+                dead = [p for p in self.procs if not p.is_alive()]
+                if dead and not self.stop_ev.is_set():
+                    raise RuntimeError(
+                        f"{dead[0].name} exited with code "
+                        f"{dead[0].exitcode} with requests outstanding")
         return self.results
 
     def shutdown(self, timeout: float = 30.0) -> List[dict]:

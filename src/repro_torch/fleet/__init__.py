@@ -1,10 +1,12 @@
 """Fleet serving: N engine replicas behind an affinity/pressure router.
 
-See docs/fleet.md.  The router and autoscaler are pure decision logic;
-``frontend`` wires them to real ``ServingSystem`` replicas of the port.
+See docs/fleet.md.  The router and autoscaler are pure decision logic
+(reusable by both the live engine and the DES); ``frontend`` wires them
+to real ``ServingSystem`` replicas of the port, and
+``repro_torch.sim.serving.FleetModel`` wires them to simulated ones.
 
 Copied from ``src/repro/fleet/__init__.py``, with its imports rewritten to
-``repro_torch``; the reference's simulated fleet (its DES) is not ported.
+``repro_torch``.
 """
 from repro_torch.fleet.autoscale import (AutoscalerConfig, FleetAutoscaler,
                                          Recommendation, ReplicaSignals)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -56,6 +57,28 @@ def test_live_engine_answers_every_request(backend, kv_dtype, multi_step):
         assert s["dequeue_wall"], "every worker executed plans"
         assert s["execute_wall"] and s["startup_s"] > 0
         assert s["kernel_launches"] == 0       # CPU: the plain version
+
+
+def test_collect_raises_when_a_worker_dies():
+    """A worker that dies (here killed; on a host without a card, its
+    backend's error) surfaces at once as an error naming it, not as the
+    requests' timeout."""
+    cfg = EngineConfig(tp_degree=2, pool_width=2,
+                       device=DeviceModel(t_fixed=1e-4, t_prefill_tok=1e-7,
+                                          t_decode_seq=1e-5))
+    sys_ = ServingSystem(cfg).start()
+    try:
+        worker = next(p for p in sys_.procs if p.name == "worker-0")
+        worker.kill()
+        worker.join()
+        sys_.submit("the quick brown fox " * 4, max_new_tokens=2)
+        t0 = time.monotonic()
+        with pytest.raises(RuntimeError, match=r"worker-0 exited with code "
+                                               r"-9 with requests outstanding"):
+            sys_.collect(1, timeout=60.0)
+        assert time.monotonic() - t0 < 5.0
+    finally:
+        sys_.shutdown(timeout=2.0)
 
 
 def _serve(*args: str) -> subprocess.CompletedProcess:
