@@ -198,8 +198,44 @@ fails:
    tokenize and dequeue p95, each worker's start-up and the start-up's
    share of the TTFT are logged.
 
+28. B3's backward on the card, float32 and bfloat16, on
+   tests/test_torch_train_cuda.py's cases (tests/test_kernels.py's shapes;
+   every head dim at S 1, 17 and 512 with causal, bidirectional and
+   window-16 masks and GQA groups of 1, 7 and 48 through the model's views
+   and a grad_output of other strides; whisper's 8 x 1,500 encoder): the
+   kernel forward's ``lse`` against the plain log-sum-exp, the backward
+   kernels against ``flash_attention_bwd_reference`` on the same inputs,
+   ``FlashAttentionFn`` against autograd of the plain forward (``BWD_TOLS``:
+   fp32 atol = rtol = 1e-4; bf16 rtol 2e-2 with B3's atol 8e-3);
+29. B4's backward likewise (float32; rtol 1e-4 with an atol of 1e-4 times
+   each gradient's largest magnitude): the scan cases with nonzero h0 and
+   h_last gradients, every d_state at T 1, 15, 17, 40 and 512, and
+   falcon-mamba's 8 x 512 x 8,192 x 16;
+30. training at full width: ``python -m repro_torch.launch.train --arch
+   qwen2-0.5b --scale full --batch 8 --seq 512`` for 6 steps with a
+   checkpoint every 3, then to step 9 with ``--resume auto`` (run with the
+   serve runs, before this process touches the card): both exit 0, the
+   second resumes from step 6 and reaches step 9, every loss is finite and
+   step 9's is below step 1's, each process launched B3 forward and
+   backward at least 24 times per step; then in process, qwen2-0.5b and
+   falcon-mamba-7b cut to 8 of its 64 layers (AdamW's float32 master, m
+   and v at full depth need about 116 GB), bf16, 8 x 512 tokens: the
+   median of three steps by CUDA events, tokens/s, peak allocated memory,
+   the busy share of one step (``torch.profiler``), B3 (or B4) forward and
+   backward launched 24 (or 8) times a step;
+31. training identity, float32, TF32 off: qwen2-0.5b and falcon-mamba-7b
+   at full width cut to 2 layers, three ``train_step``s of 2 x 64 tokens
+   on the card and on the CPU from the same weights and batches; losses
+   and grad norms within 1e-5 relative at step 1 and 1e-4 after
+   (tests/test_torch_train_cuda.py, ``IDENTITY_TOL``);
+32. the backward kernels' times: B3's at 8 x 512 with qwen2-0.5b's heads
+   (bf16, causal) and at whisper's 8 x 1,500 (bidirectional), B4's at
+   8 x 512 x 8,192 x 16; each held to its plain version, then timed as
+   phase 10 times kernels, with SDPA's backward as B3's yardstick.
+
 The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
-phases above); the last line is ``{"ok": true, "device": {...}}``.
+phases above, and the backward kernels ``B3-bwd`` and ``B4-bwd``); the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -359,6 +395,10 @@ def main() -> None:
     # process touches the card's memory
     contention()
     t_comp = time.perf_counter() - t_comp
+    # 30. the training CLI, also before this process touches the card
+    t_train = time.perf_counter()
+    train_cli()
+    t_train = time.perf_counter() - t_train
 
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention as kernel,
@@ -460,11 +500,16 @@ def main() -> None:
     rec, long_kernels = calibration(dev, ROOT / "build" / "devmodel")
     entries += long_kernels
     des_sweep(rec["device_model"])
+    # 28.-32. training: the backward kernels, in process, card vs CPU, times
+    t_fit = time.perf_counter()
+    entries += training(dev)
     now = time.perf_counter()
-    log(f"phases 1-10 and 19-20 took {t_ssm - t_start - t_comp:.1f} s, "
-        f"phases 11-15 {t_moe - t_ssm:.1f} s, phases 21-24 "
-        f"{t_cal - t_moe:.1f} s, phases 25-26 {now - t_cal:.1f} s, the "
-        f"serve runs of phases 16-18 and 27 {t_comp:.1f} s")
+    log(f"phases 1-10 and 19-20 took "
+        f"{t_ssm - t_start - t_comp - t_train:.1f} s, phases 11-15 "
+        f"{t_moe - t_ssm:.1f} s, phases 21-24 {t_cal - t_moe:.1f} s, phases "
+        f"25-26 {t_fit - t_cal:.1f} s, phases 28-32 {now - t_fit:.1f} s and "
+        f"the training CLI's runs of phase 30 {t_train:.1f} s, the serve runs of "
+        f"phases 16-18 and 27 {t_comp:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -1840,6 +1885,406 @@ def contention() -> dict:
         fail("serve_contention printed no degradation line")
     log(f"contention: {wall:.1f} s wall")
     return runs
+
+
+# -- phases 28-32: training ----------------------------------------------------
+
+def _train_cases():
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_train_cuda as cases
+    return cases
+
+
+def backward_vs_plain(dev) -> None:
+    """Phases 28-29: B3's backward on tests/test_torch_train_cuda.py's
+    cases (tests/test_kernels.py's shapes; every head dim at S 1, 17 and
+    512 with causal, bidirectional and window-16 masks and GQA groups of 1,
+    7 and 48 through the model's views and a grad_output of other strides;
+    whisper's 8 x 1,500 encoder), float32 and bfloat16: the kernel forward's
+    lse against the plain log-sum-exp, the backward kernels against
+    ``flash_attention_bwd_reference`` on the same inputs, and
+    ``FlashAttentionFn`` against autograd of the plain forward
+    (``BWD_TOLS``); then B4's backward on the scan cases (nonzero h0 and
+    h_last gradients, every d_state at T 1, 15, 17, 40 and 512, and
+    falcon-mamba's 8 x 512 x 8192 x 16) against
+    ``mamba1_scan_bwd_reference`` and ``MambaScanFn`` against autograd of
+    the plain forward (``SCAN_TOL``)."""
+    import torch
+    cases = _train_cases()
+    worst, n = {}, 0
+    for dname, dtype in cases.DTYPES.items():
+        todo = [cases.numpy_bwd_case(c, dev, dtype)
+                for _, c in cases.attn_cases.flash_cases()]
+        todo += [cases.flash_bwd_case(dev, dtype, **p)
+                 for _, p in cases.flash_bwd_cases()]
+        todo.append(cases.whisper_bwd_case(dev, dtype))
+        for c in todo:
+            try:
+                errs = cases.flash_bwd_errors(c, dname)
+            except AssertionError as e:
+                fail(f"B3 backward disagrees ({dname}, q "
+                     f"{tuple(c['q'].shape)}, k {tuple(c['k'].shape)}, "
+                     f"causal {c['causal']}, window {c['window']}): {e}")
+            for k, e in errs.items():
+                worst[(dname, k)] = max(worst.get((dname, k), 0.0), e)
+            n += 1
+        torch.cuda.synchronize()
+    log(f"phase 28: B3 backward over {n} cases: max abs err "
+        + ", ".join(f"{d} {k} {e:.3g}" for (d, k), e in sorted(worst.items()))
+        + " (fp32 atol = rtol = 1e-4; bf16 rtol 2e-2, atol 8e-3, against "
+        "autograd of the plain forward scaled by the gradient's largest "
+        "magnitude; lse fp32 1e-4, bf16 1e-3)")
+    sc = cases.scan_cases
+    todo = [cases.scan_bwd_case(sc.to_torch(sc.scan_case(*s), dev), dev)
+            for s in sc.SHAPES]
+    todo += [cases.scan_bwd_case(sc.to_torch(sc.scan_case(2, T, 200, N, True),
+                                             dev), dev)
+             for N, T in cases.SCAN_BWD_STATES]
+    todo.append(cases.scan_bwd_case(sc.falcon_case(dev, 512, with_h0=False),
+                                    dev))
+    worst = {}
+    for c in todo:
+        try:
+            errs = cases.scan_bwd_errors(c)
+        except AssertionError as e:
+            fail(f"B4 backward disagrees (x {tuple(c['x'].shape)}, N "
+                 f"{c['A'].shape[1]}, h0 {c['h0'] is not None}): {e}")
+        for k, e in errs.items():
+            worst[k] = max(worst.get(k, 0.0), e)
+    torch.cuda.synchronize()
+    log(f"phase 29: B4 backward over {len(todo)} cases: max abs err "
+        + ", ".join(f"{k} {e:.3g}" for k, e in sorted(worst.items()))
+        + " (rtol 1e-4, atol 1e-4 x the gradient's largest magnitude)")
+
+
+TRAIN_ARCH = "qwen2-0.5b"
+
+
+def _train_losses(out: str) -> dict:
+    return {int(st): float(loss) for st, loss in re.findall(
+        r"\[train\] step=(\d+) loss=(\S+) grad_norm=", out)}
+
+
+def _train_launches(out: str) -> dict:
+    m = re.search(r"kernel launches: flash_fwd=(\d+) flash_bwd=(\d+) "
+                  r"scan_fwd=(\d+) scan_bwd=(\d+)", out)
+    if not m:
+        fail("launch.train printed no launch counts")
+    return dict(zip(("flash_fwd", "flash_bwd", "scan_fwd", "scan_bwd"),
+                    map(int, m.groups())))
+
+
+def train_cli() -> dict:
+    """Phase 30, the training CLI: ``python -m repro_torch.launch.train --arch
+    qwen2-0.5b --scale full --batch 8 --seq 512`` for 6 steps with a
+    checkpoint every 3, then again to step 9 with ``--resume auto`` (run
+    before this process touches the card).  Both exit 0; the second
+    resumes from step 6 and reaches step 9; every logged loss is finite and
+    step 9's is below step 1's; each process launched B3 forward and
+    backward at least 24 times per step it ran."""
+    import shutil
+    ckpt = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ("--arch", TRAIN_ARCH, "--scale", "full", "--batch", "8",
+            "--seq", "512", "--ckpt", str(ckpt), "--ckpt-every", "3",
+            "--log-every", "1")
+    runs = []
+    try:
+        for steps, extra in ((6, ()), (9, ("--resume", "auto"))):
+            out, wall = run_module("repro_torch.launch.train", *base,
+                                   "--steps", str(steps), *extra)
+            runs.append((out, wall))
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    (out1, wall1), (out2, wall2) = runs
+    if "resumed from step 6" not in out2 or "step=9" not in out2:
+        fail("the resumed training run did not continue from step 6 to 9")
+    losses = {**_train_losses(out1), **_train_losses(out2)}
+    if sorted(losses) != list(range(1, 10)):
+        fail(f"training logged the steps {sorted(losses)}, want 1..9")
+    if not all(math.isfinite(x) for x in losses.values()):
+        fail(f"a training loss is not finite: {losses}")
+    if not losses[9] < losses[1]:
+        fail(f"the loss did not fall: step 1 {losses[1]}, step 9 "
+             f"{losses[9]}")
+    n = layer_calls(TRAIN_ARCH, "attn")
+    for out, ran in ((out1, 6), (out2, 3)):
+        got = _train_launches(out)
+        for k in ("flash_fwd", "flash_bwd"):
+            if got[k] < n * ran:
+                fail(f"launch.train launched {k} {got[k]} times in "
+                     f"{ran} steps, want >= {n * ran}")
+    log(f"phase 30 launch.train: {TRAIN_ARCH} full width bf16, 8 x 512 tokens: "
+        f"losses {losses}; launches {_train_launches(out1)} (6 steps), "
+        f"{_train_launches(out2)} (3 steps, resumed); {wall1:.1f} s and "
+        f"{wall2:.1f} s wall")
+    return {"losses": losses, "wall_s": (wall1, wall2)}
+
+
+def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
+                     seq: int = 512, **cut) -> dict:
+    """Phase 30, in process: ``arch`` at full width in bf16 (depth cut by
+    ``cut``), ``make_train_step`` as ``launch.train`` builds it (remat off, 2 CE
+    chunks, its AdamW schedule); one warm-up step, then three steps timed
+    by CUDA events (the median is the step time), tokens/s, the peak of
+    allocated memory, and one more step under ``torch.profiler`` for the
+    device's busy share.  ``wrappers`` maps a name to (wrapper, launches
+    wanted per step): every count is set to 0 just before the timed steps
+    and read just after.  Returns the numbers and the counts."""
+    import statistics
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train import optim
+    from repro_torch.train.step import make_train_step
+
+    cfg = get_config(arch).scaled(**cut)
+    t0 = time.perf_counter()
+    model = M.Model(cfg, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    state = optim.init_opt_state(params)
+    step = make_train_step(model, optim.AdamWConfig(warmup_steps=5,
+                                                    decay_steps=10),
+                           remat=False, ce_chunks=2)
+    g = torch.Generator(dev).manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (4, batch, seq + 1), generator=g,
+                         device=dev, dtype=torch.int32)
+    batches = [{"tokens": t[:, :-1], "targets": t[:, 1:]} for t in toks]
+    state, m = step(state, batches[0])                  # warm-up
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    for w, _ in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    times, losses = [], []
+    for b in batches[1:]:
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    counts = {k: w.launches for k, (w, _) in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated(dev)
+    for k, (_, per_step) in wrappers.items():
+        if counts[k] < per_step * len(times):
+            fail(f"{arch} training launched {k} {counts[k]} times in "
+                 f"{len(times)} steps, want >= {per_step * len(times)}")
+    if not all(math.isfinite(x) for x in losses):
+        fail(f"{arch} training losses are not finite: {losses}")
+    wall_ms, dev_ms, n_kernels, top = device_share(
+        lambda: step(state, batches[1]))
+    step_ms = statistics.median(times)
+    share = f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"
+    log(f"phase 30 in process: {arch} {n_params} parameters ({cfg.dtype}"
+        + (f", cut to {cut}" if cut else "") + f"), {batch} x {seq} tokens: "
+        f"step {step_ms:.3f} ms (median of {times}), "
+        f"{batch * seq / (step_ms / 1e3):.1f} tokens/s, peak allocated "
+        f"{peak / 2**30:.2f} GiB, losses {losses}, launches {counts} over "
+        f"{len(times)} steps; built and warmed in {build_s:.1f} s; profile "
+        f"of one step: wall {wall_ms:.3f} ms (profiler on), device kernels "
+        f"{dev_ms:.3f} ms in {n_kernels} launches, busy share {share}; top: "
+        f"{top}")
+    del model, params, state, step, batches, toks
+    torch.cuda.empty_cache()
+    return {"step_ms": step_ms, "tokens_s": batch * seq / (step_ms / 1e3),
+            "peak_bytes": peak, "busy": share, "launches": counts}
+
+
+# step 1 from the same weights: float32 sums in other orders; steps 2 and 3
+# start from weights that AdamW moved, where an element whose gradient is
+# near 0 moves by +-lr by the sign of a rounding error (tests/
+# test_torch_train_cuda.py, ``IDENTITY_TOL``)
+def train_identity(dev, arch: str, **cut) -> None:
+    """Phase 31: ``arch`` at full width in float32 with its depth cut, three
+    ``train_step``s of 2 x 64 tokens on the card and on the CPU from the
+    same weights and batches (TF32 off): losses and grad norms agree
+    within ``IDENTITY_TOL``."""
+    from repro_torch.configs import get_config
+    cases = _train_cases()
+    t0 = time.perf_counter()
+    cfg = get_config(arch).scaled(dtype="float32", **cut)
+    rows = cases.train_identity(arch, dev, cfg)
+    for i, (card, host) in enumerate(rows):
+        for k in ("loss", "ce", "grad_norm"):
+            rel = abs(card[k] - host[k]) / abs(host[k])
+            if not (math.isfinite(card[k])
+                    and rel <= cases.IDENTITY_TOL[i]):
+                fail(f"{arch} step {i + 1} {k}: card {card[k]!r}, CPU "
+                     f"{host[k]!r} (relative {rel:.3g} > "
+                     f"{cases.IDENTITY_TOL[i]})")
+    log(f"phase 31: {arch} float32 cut to {cut}, 3 steps of 2 x 64: "
+        + "; ".join(f"step {i + 1} loss card {c['loss']!r} cpu "
+                    f"{h['loss']!r}, grad norm card {c['grad_norm']!r} cpu "
+                    f"{h['grad_norm']!r}" for i, (c, h) in enumerate(rows))
+        + f" (tolerance {cases.IDENTITY_TOL}); {time.perf_counter() - t0:.1f}"
+        " s")
+
+
+def time_flash_bwd(dev, launches: int, B, S, H, KV, D, causal=True) -> dict:
+    """Phase 32: B3's backward at one bf16 shape (the model's views, a
+    grad_output laid out as the model's), held to its plain version on
+    the timed inputs, then timed beside it, SDPA's backward (autograd
+    through ``scaled_dot_product_attention(..., enable_gqa=True)`` on a
+    retained graph, first checked to give the same gradients) and its
+    bound: bytes (q, k, v, o, dO, lse read, dq, dk, dv written) over 3.35
+    TB/s against 10 D operations per kept (query, key) pair (the five
+    products Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over 989 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bhsd, flash_attention_bwd,
+        flash_attention_bwd_reference)
+    cases = _train_cases()
+    c = cases.attn_cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H,
+                                     KV=KV, D=D)
+    q, k, v = c["q"], c["k"], c["v"]
+    g = torch.Generator(dev).manual_seed(2)
+    do = torch.randn((B, S, H, D), generator=g, device=dev).to(
+        torch.bfloat16).transpose(1, 2)
+    o, lse = flash_attention_bhsd(q, k, v, causal=causal, with_lse=True)
+    name = f"B3-bwd_bf16_b{B}_s{S}" + (
+        "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}") + (
+        "" if causal else "_bidir")
+
+    def kernel():
+        return flash_attention_bwd(q, k, v, o, lse, do, causal=causal)
+
+    def plain():
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    got, want = kernel(), plain()
+    err = 0.0
+    for gg, ww in zip(got, want):
+        err = max(err, (gg.float() - ww.float()).abs().max().item())
+        if not torch.allclose(gg.float(), ww.float(),
+                              **cases.BWD_TOLS["bfloat16"]):
+            fail(f"{name}: backward kernel disagrees with its plain version "
+                 f"at the timed shape: max abs err {err:.3g}")
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                         enable_gqa=True)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+    for gg, ww in zip(sdpa_bwd(), want):
+        ww = ww.float()
+        if not torch.allclose(gg.float(), ww, rtol=2e-2, atol=8e-3 * max(
+                1.0, ww.abs().max().item())):
+            fail("SDPA's backward (yardstick) does not give B3's gradients")
+    ms, plain_ms = _time_pair(kernel, plain)
+    library_ms = cuda_ms(sdpa_bwd)
+    nbytes = 2 * (4 * B * S * H * D + 4 * B * S * KV * D) + 4 * B * H * S
+    pairs = S * (S + 1) // 2 if causal else S * S
+    flops = 10 * D * H * B * pairs
+    bound_ms, bound_by = _bound(nbytes, flops)
+    dev_ms = _device_ms_per_call(kernel)
+    log(f"{name}: H={H} KV={KV} D={D} "
+        f"{'causal' if causal else 'bidirectional'}: max abs err {err:.3g}, "
+        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
+        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} "
+        f"B, {flops} flop), achieved {flops / (ms * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s; device time per call (profiler): kernel {dev_ms}, SDPA "
+        f"backward {_device_ms_per_call(sdpa_bwd)}")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
+
+
+def time_scan_bwd(dev, launches: int) -> dict:
+    """Phase 32: B4's backward at falcon-mamba's training shape (8 x 512,
+    8,192 channels, 16 states, no initial state, no h_last gradient, as
+    training calls it), held to its plain version, then timed beside it
+    with its bound: bytes (x, dt, dy, B_t, C_t, A read; dx, ddt, dB, dC, dA
+    written) over 3.35 TB/s against 20 float32 operations per (b, t, d, n)
+    (the states recomputed, then the recurrence above) over 67 TFLOP/s;
+    no one PyTorch call computes it, so no library time."""
+    import torch
+
+    from repro_torch.kernels.mamba_scan import (
+        mamba1_scan_bwd, mamba1_scan_bwd_reference)
+    cases = _train_cases()
+    c = cases.scan_bwd_case(cases.scan_cases.falcon_case(dev, 512,
+                                                         with_h0=False), dev)
+    args = [c[n] for n in ("x", "dt", "Bt", "Ct", "A")]
+    B, T, Di = c["x"].shape
+    N = c["A"].shape[1]
+    name = f"B4-bwd_f32_b{B}_t{T}"
+
+    def kernel():
+        return mamba1_scan_bwd(*args, None, c["dy"], None)
+
+    def plain():
+        return mamba1_scan_bwd_reference(*args, None, c["dy"], None)
+    err = 0.0
+    for gg, ww in zip(kernel()[:5], plain()[:5]):
+        try:
+            err = max(err, cases.scan_check(gg, ww))
+        except AssertionError as e:
+            fail(f"{name}: backward kernel disagrees with its plain version "
+                 f"at the timed shape: {e}")
+    ms, plain_ms = _time_pair(kernel, plain)
+    nbytes = 4 * (5 * B * T * Di + 4 * B * T * N + 2 * Di * N)
+    flops = 20 * B * T * Di * N
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    dev_ms = _device_ms_per_call(kernel)
+    log(f"{name}: Di={Di} N={N}: max abs err {err:.3g}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
+        f"{nbytes} B, {flops} flop), achieved "
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time per call "
+        f"(profiler): kernel {dev_ms}")
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
+            "replaces": "src/repro/kernels/mamba_scan.py:48",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None}
+
+
+def training(dev) -> list:
+    """Phases 28-32 after the training CLI's runs: the backward kernels against
+    their plain versions, training in process at full width (qwen2-0.5b,
+    then falcon-mamba-7b cut to 8 of its 64 layers: with AdamW's float32
+    master, m and v the full depth needs about 116 GB), the card against
+    the CPU, and the backward kernels' times.  Returns the kernel
+    entries."""
+    from repro_torch.kernels.flash_attention import (
+        flash_attention_bhsd, flash_attention_bwd)
+    from repro_torch.kernels.mamba_scan import mamba1_scan, mamba1_scan_bwd
+    t0 = time.perf_counter()
+    backward_vs_plain(dev)
+    t1 = time.perf_counter()
+    n = layer_calls(TRAIN_ARCH, "attn")
+    qwen = train_in_process(dev, TRAIN_ARCH, {
+        "flash_fwd": (flash_attention_bhsd, n),
+        "flash_bwd": (flash_attention_bwd, n)})
+    falcon = train_in_process(dev, "falcon-mamba-7b", {
+        "scan_fwd": (mamba1_scan, 8), "scan_bwd": (mamba1_scan_bwd, 8)},
+        n_layers=8)
+    t2 = time.perf_counter()
+    train_identity(dev, TRAIN_ARCH, n_layers=2)
+    train_identity(dev, "falcon-mamba-7b", n_layers=2)
+    t3 = time.perf_counter()
+    entries = [time_flash_bwd(dev, qwen["launches"]["flash_bwd"], 8, 512, 14,
+                              2, 64),
+               time_flash_bwd(dev, qwen["launches"]["flash_bwd"], 8, 1500, 12,
+                              12, 64, causal=False),
+               time_scan_bwd(dev, falcon["launches"]["scan_bwd"])]
+    log(f"phases 28-29 took {t1 - t0:.1f} s, phase 30 in process "
+        f"{t2 - t1:.1f} s, phase 31 {t3 - t2:.1f} s, phase 32 "
+        f"{time.perf_counter() - t3:.1f} s")
+    return entries
 
 
 if __name__ == "__main__":

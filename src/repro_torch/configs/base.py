@@ -4,10 +4,8 @@ The port's copy of ``src/repro/configs/base.py``, with the same dataclasses,
 cells and numbers.  Two things differ: ``ModelConfig.param_dtype`` returns
 a ``torch.dtype``, and ``input_specs`` returns tensors on the ``meta``
 device (shape and dtype, no storage) in place of ``ShapeDtypeStruct``s.
-
-``tiny_config`` is the copy of ``tiny_config`` in
-``src/repro/launch/train.py``; it lives here until the training driver is
-ported.
+``tiny_config`` lives where the reference has it, in
+``repro_torch.launch.train``.
 """
 from __future__ import annotations
 
@@ -121,35 +119,6 @@ class ModelConfig:
     def scaled(self, **overrides) -> "ModelConfig":
         """Reduced copy for smoke tests (same family, tiny dims)."""
         return dataclasses.replace(self, **overrides)
-
-
-def tiny_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
-    """A CPU-sized config of ``cfg``'s family (the copy of
-    ``repro.launch.train.tiny_config``, same numbers)."""
-    over = dict(
-        n_layers=max(2, (sum(cfg.local_global_ratio)
-                         if cfg.local_global_ratio else 2)),
-        d_model=128, d_ff=256 if cfg.d_ff else 0,
-        vocab_size=vocab, vocab_pad_multiple=8, dtype="float32",
-    )
-    if cfg.n_heads:
-        over.update(n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 4) or 1,
-                    d_head=32)
-    if cfg.mrope_sections is not None:
-        over["mrope_sections"] = (4, 6, 6)
-    if cfg.moe is not None:
-        over["moe"] = MoEConfig(n_experts=8, top_k=2, d_ff_expert=64,
-                                n_shared_experts=cfg.moe.n_shared_experts and 2)
-    if cfg.ssm is not None:
-        over["ssm"] = SSMConfig(version=cfg.ssm.version, d_state=8,
-                                d_conv=4, expand=2, head_dim=32, dt_rank=8)
-    if cfg.encdec is not None:
-        over["encdec"] = EncDecConfig(n_encoder_layers=2, n_encoder_ctx=16)
-    if cfg.hybrid_period is not None:
-        over.update(n_layers=5, hybrid_period=3)
-    if cfg.sliding_window is not None:
-        over["sliding_window"] = 32
-    return cfg.scaled(**over)
 
 
 # ---------------------------------------------------------------------------

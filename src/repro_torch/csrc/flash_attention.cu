@@ -41,6 +41,10 @@
 // tensor cores in bf16 or TF32 would break; bf16 at D 16 and 32 (test
 // shapes, no model in the zoo) stays here too.
 //
+// For the backward pass (flash_attention_bwd.cu) the epilogue also writes
+// each row's log-sum-exp, m + log(l), to `lse` [B, H, S] when the caller
+// passes one; inference passes none.
+//
 // C interface (bound with ctypes): fa_launch returns the cudaError_t of the
 // launch, 0 on success.
 
@@ -60,6 +64,7 @@ struct FaArgs {
   int64_t o_sb, o_sh, o_ss;
   int causal, window;
   float scale;
+  float* lse;           // [B, H, S] log-sum-exp of each row, or null
 };
 
 template <typename T, int D, int RPT, int CPT>
@@ -117,6 +122,8 @@ flash_attention_kernel(const FaArgs a) {
     const int row = ty + 16 * i;
     if (row < nq) {
       const float li = l[i] == 0.f ? 1.f : l[i];
+      if (a.lse != nullptr && tx == 0)
+        a.lse[static_cast<int64_t>(bh) * a.S + q0 + row] = m[i] + logf(li);
       T* orow = out + (q0 + row) * a.o_ss;
 #pragma unroll
       for (int d = 0; d < D / 8; ++d) attn::store(orow + tx + 8 * d, o[i][d] / li);
@@ -169,16 +176,16 @@ int dispatch_bf16(const FaArgs& a, int B, int D, cudaStream_t stream) {
 extern "C" {
 
 // dtype 0: fp32 (D in {16, 32, 64, 128, 256}), 1: bf16 (D in {16, 32}).
-// Strides are in elements; window <= 0: none.
+// Strides are in elements; window <= 0: none; lse may be null.
 int fa_launch(int dtype, const void* q, const void* k, const void* v,
               void* out, int B, int H, int KV, int S, int D, int64_t q_sb,
               int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
               int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
               int64_t o_sb, int64_t o_sh, int64_t o_ss, int causal,
-              int window, float scale, void* stream) {
+              int window, float scale, float* lse, void* stream) {
   const FaArgs a{q,    k,    v,    out,  H,    KV,     S,      q_sb,
                  q_sh, q_ss, k_sb, k_sh, k_ss, v_sb,   v_sh,   v_ss,
-                 o_sb, o_sh, o_ss, causal, window, scale};
+                 o_sb, o_sh, o_ss, causal, window, scale, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 1) return dispatch_bf16(a, B, D, s);
   return dispatch_f32(a, B, D, s);

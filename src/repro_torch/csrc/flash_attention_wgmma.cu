@@ -48,7 +48,10 @@
 //   from shared memory as an MN-major (transposed) B operand, once per 64
 //   columns of D.
 // * Epilogue: O / l, rounded to bf16, stored through the output's strides;
-//   rows >= S are not written.
+//   rows >= S are not written.  For the backward pass
+//   (flash_attention_bwd.cu) it also writes each row's log-sum-exp in the
+//   natural domain, (m + log2 l) * ln 2 (m is kept in the log2 domain),
+//   to `lse` when the caller passes one; inference passes none.
 // Blocks start from the last query tile to the first, over all heads, so
 // the longest causal rows start first.
 //
@@ -102,6 +105,7 @@ struct FwArgs {
   int64_t o_sb, o_sh, o_ss;
   int causal, window;
   float scale_log2;             // log2(e) / sqrt(D)
+  float* lse;                   // [B, H, S] log-sum-exp of each row, or null
 };
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
@@ -391,6 +395,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const float inv = 1.f / (li == 0.f ? 1.f : li);
     const int row = row0 + 8 * rr;
     if (row < a.S) {
+      if (a.lse != nullptr && lane % 4 == 0)
+        a.lse[static_cast<int64_t>(bh) * a.S + row] =
+            (m[rr] + log2f(li == 0.f ? 1.f : li)) * 0.6931471805599453f;
       __nv_bfloat16* orow = out + row * a.o_ss;
 #pragma unroll
       for (int c = 0; c < NC; ++c)
@@ -492,14 +499,15 @@ int encode_and_launch(const void* q, const void* k, const void* v,
 extern "C" {
 
 // bf16 only, D in {64, 128, 256}.  Strides are in elements; window <= 0:
-// none.
+// none; lse may be null.
 int fa_wgmma_launch(const void* q, const void* k, const void* v, void* out,
                     int B, int H, int KV, int S, int D, int64_t q_sb,
                     int64_t q_sh, int64_t q_ss, int64_t k_sb, int64_t k_sh,
                     int64_t k_ss, int64_t v_sb, int64_t v_sh, int64_t v_ss,
                     int64_t o_sb, int64_t o_sh, int64_t o_ss, int causal,
-                    int window, float scale_log2, void* stream) {
-  const FwArgs a{out, H, KV, S, o_sb, o_sh, o_ss, causal, window, scale_log2};
+                    int window, float scale_log2, float* lse, void* stream) {
+  const FwArgs a{out, H,      KV,     S,          o_sb, o_sh,
+                 o_ss, causal, window, scale_log2, lse};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 64:

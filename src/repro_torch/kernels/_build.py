@@ -112,11 +112,16 @@ def load_library() -> ctypes.CDLL:
     lib.pda_smem_bytes.restype = ctypes.c_size_t
     i64 = ctypes.c_int64
     lib.fa_launch.argtypes = [ci, vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                              *[i64] * 12, ci, ci, ctypes.c_float, vp]
+                              *[i64] * 12, ci, ci, ctypes.c_float, vp, vp]
     lib.fa_launch.restype = ci
     lib.fa_wgmma_launch.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                    *[i64] * 12, ci, ci, ctypes.c_float, vp]
+                                    *[i64] * 12, ci, ci, ctypes.c_float, vp,
+                                    vp]
     lib.fa_wgmma_launch.restype = ci
+    lib.fab_launch.argtypes = [ci, *[vp] * 10, ci, ci, ci, ci, ci,
+                               ctypes.POINTER(i64), ci, ci, ctypes.c_float,
+                               vp]
+    lib.fab_launch.restype = ci
     lib.da_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                               ci, ci, ci, *[i64] * 10, ci, ctypes.c_float, vp]
     lib.da_launch.restype = ci
@@ -124,6 +129,8 @@ def load_library() -> ctypes.CDLL:
     lib.da_tile_slots.restype = ci
     lib.ms_launch.argtypes = [*[vp] * 8, ci, ci, ci, ci, *[i64] * 4, vp]
     lib.ms_launch.restype = ci
+    lib.msb_launch.argtypes = [*[vp] * 16, ci, ci, ci, ci, vp]
+    lib.msb_launch.restype = ci
     return lib
 
 

@@ -35,6 +35,16 @@ Layouts.  Besides the TPU kernel's ``[BH, S, D]``, the wrapper takes
 model passes ``[B, S, H, D]`` activations as transposed views and nothing
 is copied; the result is then a ``[B, H, S, D]`` view of a tensor laid
 out ``[B, S, H, D]``.  ``[BH, S, D]`` is the case ``B = 1``.
+
+Gradient.  The JAX package has no backward kernel: it differentiates its
+jnp attention.  The port's models call B3 on the training path, so
+``FlashAttentionFn`` gives it one.  Its forward pass asks the kernel for
+each row's float32 log-sum-exp as well (``with_lse``; inference calls do
+not), and its backward pass is ``flash_attention_bwd``: on the card the
+port's own hand-written kernels in ``csrc/flash_attention_bwd.cu`` (dQ,
+then dK and dV, no atomics), counted in ``flash_attention_bwd.launches``;
+on the CPU ``flash_attention_bwd_reference``, their formulas in plain
+PyTorch.
 """
 from __future__ import annotations
 
@@ -57,17 +67,13 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
             and head_dim in WGMMA_HEAD_DIMS else "simt")
 
 
-def flash_attention_reference(q, k, v, *, causal: bool = True,
-                              window: Optional[int] = None):
-    """Plain PyTorch, term for term ``repro.kernels.ref.flash_attention_ref``:
-    q [BH, S, D] (or [B, H, S, D]); k, v [BKV, S, D] (or [B, KV, S, D])."""
-    shape = q.shape
-    if q.dim() == 4:
-        q, k, v = (t.reshape(-1, *t.shape[2:]) for t in (q, k, v))
+def _masked_scores(q, k, causal: bool, window: Optional[int]):
+    """[BH, S, S] float32 scores of q [BH, S, D] against k [BKV, S, D] (kv
+    heads repeated to the query heads), scaled by 1/sqrt(D), masked
+    entries at -1e30, as ``repro.kernels.ref.flash_attention_ref``."""
     BH, S, D = q.shape
     r = BH // k.shape[0]
     kx = torch.repeat_interleave(k, r, dim=0).float()
-    vx = torch.repeat_interleave(v, r, dim=0).float()
     s = torch.einsum("hqd,hkd->hqk", q.float(), kx) / (D ** 0.5)
     qpos = torch.arange(S, device=q.device)[:, None]
     kpos = torch.arange(S, device=q.device)[None, :]
@@ -76,9 +82,69 @@ def flash_attention_reference(q, k, v, *, causal: bool = True,
         mask &= qpos >= kpos
     if window is not None:
         mask &= kpos > qpos - window
-    s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
-    a = torch.softmax(s, dim=-1)
+    return torch.where(mask[None], s, torch.full_like(s, NEG_INF))
+
+
+def _flat(*ts):
+    """[B, H, S, D] tensors as [B * H, S, D] (3-D ones as they are)."""
+    return [t.reshape(-1, *t.shape[2:]) if t.dim() == 4 else t for t in ts]
+
+
+def flash_attention_reference(q, k, v, *, causal: bool = True,
+                              window: Optional[int] = None):
+    """Plain PyTorch, term for term ``repro.kernels.ref.flash_attention_ref``:
+    q [BH, S, D] (or [B, H, S, D]); k, v [BKV, S, D] (or [B, KV, S, D])."""
+    shape = q.shape
+    q, k, v = _flat(q, k, v)
+    r = q.shape[0] // k.shape[0]
+    vx = torch.repeat_interleave(v, r, dim=0).float()
+    a = torch.softmax(_masked_scores(q, k, causal, window), dim=-1)
     return torch.einsum("hqk,hkd->hqd", a, vx).to(q.dtype).reshape(shape)
+
+
+def flash_attention_lse_reference(q, k, *, causal: bool = True,
+                                  window: Optional[int] = None):
+    """The log-sum-exp of each query row's masked, scaled scores: float32
+    [BH, S] (or [B, H, S]), what the kernels write beside the output for
+    the backward pass (``lse`` of ``flash_attention_bhsd``)."""
+    shape = q.shape[:-1]
+    q, k = _flat(q, k)
+    return torch.logsumexp(_masked_scores(q, k, causal, window),
+                           dim=-1).reshape(shape)
+
+
+def flash_attention_bwd_reference(q, k, v, o, lse, do, causal: bool = True,
+                                  window: Optional[int] = None):
+    """Plain PyTorch of the backward pass, the formulas the kernels of
+    ``csrc/flash_attention_bwd.cu`` compute, in float32: with
+    ``P = exp(S * scale - lse)`` (masked entries 0), ``dP = dO V^T`` and
+    ``delta = rowsum(dO * O)``,
+
+        dV = P^T dO,  dS = P * (dP - delta),  dQ = dS K * scale,
+        dK = dS^T Q * scale,
+
+    dK and dV summed over the ``r`` query heads of each kv head.  Shapes
+    as ``flash_attention_reference``'s, ``lse`` [BH, S] (or [B, H, S])
+    float32; returns (dq, dk, dv) in the inputs' dtype and shapes."""
+    shapes = (q.shape, k.shape, v.shape)
+    qf, kf, vf, of, dof = (t.float() for t in _flat(q, k, v, o, do))
+    BH, S, D = qf.shape
+    BKV = kf.shape[0]
+    r = BH // BKV
+    scale = 1.0 / D ** 0.5
+    kx = torch.repeat_interleave(kf, r, dim=0)
+    vx = torch.repeat_interleave(vf, r, dim=0)
+    p = torch.exp(_masked_scores(qf, kf, causal, window)
+                  - lse.float().reshape(BH, S)[..., None])
+    dv = torch.einsum("hqk,hqd->hkd", p, dof).reshape(BKV, r, S, D).sum(1)
+    dp = torch.einsum("hqd,hkd->hqk", dof, vx)
+    delta = (dof * of).sum(-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("hqk,hkd->hqd", ds, kx) * scale
+    dk = (torch.einsum("hqk,hqd->hkd", ds, qf) * scale
+          ).reshape(BKV, r, S, D).sum(1)
+    return tuple(g.to(t.dtype).reshape(shape) for g, t, shape in
+                 zip((dq, dk, dv), (q, k, v), shapes))
 
 
 def _as4(t: torch.Tensor) -> torch.Tensor:
@@ -103,27 +169,51 @@ def _check(q, k, v, window) -> None:
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q, k, v must share float32 or bfloat16, got "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    vec = 16 // q.element_size()           # elements per 16-byte load
     for t in (q, k, v):
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
-        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
+        if not _rows_aligned(t):
             raise ValueError("kernel takes a unit last stride, other strides "
                              "of whole 16-byte rows and 16-byte aligned data")
 
 
+def _rows_aligned(t: torch.Tensor) -> bool:
+    """Unit last stride, other strides whole 16-byte rows, 16-byte aligned
+    data: what the kernels' 16-byte row loads take."""
+    vec = 16 // t.element_size()           # elements per 16-byte load
+    return (t.stride(-1) == 1 and not any(s % vec for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def _empty_like_input(t: torch.Tensor) -> torch.Tensor:
+    """An output for input ``t`` as a [B, ., S, D] tensor: contiguous for a
+    [BH, S, D] input (with a unit batch axis in front), else laid out
+    [B, S, ., D] and returned as a [B, ., S, D] view, the model's layout."""
+    if t.dim() == 3:
+        return torch.empty_like(t, memory_format=torch.contiguous_format
+                                ).unsqueeze(0)
+    B, H, S, D = t.shape
+    return torch.empty((B, S, H, D), dtype=t.dtype,
+                       device=t.device).transpose(1, 2)
+
+
 def flash_attention_bhsd(q, k, v, *, causal: bool = True,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None,
+                         with_lse: bool = False):
     """q: [BH, S, D] or [B, H, S, D]; k, v: [BKV, S, D] or [B, KV, S, D];
-    float32 or bfloat16.  Returns q's shape and dtype.
+    float32 or bfloat16.  Returns q's shape and dtype; with ``with_lse``,
+    (out, lse), ``lse`` the float32 log-sum-exp of each row's masked,
+    scaled scores ([BH, S] or [B, H, S]), which the backward pass reads.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     ``route(q.dtype, D)`` and add one to ``flash_attention_bhsd.launches``
     and to that route's count in ``launches_by_route``."""
     if q.device.type == "cpu":
-        return flash_attention_reference(q, k, v, causal=causal,
-                                         window=window)
+        out = flash_attention_reference(q, k, v, causal=causal, window=window)
+        if not with_lse:
+            return out
+        return out, flash_attention_lse_reference(q, k, causal=causal,
+                                                  window=window)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     _check(q, k, v, window)
@@ -132,32 +222,117 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
     q4, k4, v4 = _as4(q), _as4(k), _as4(v)
     B, H, S, D = q4.shape
     KV = k4.shape[1]
-    if q.dim() == 3:
-        out4 = torch.empty_like(q, memory_format=torch.contiguous_format
-                                ).unsqueeze(0)
-    else:   # laid out [B, S, H, D], returned as a [B, H, S, D] view
-        out4 = torch.empty((B, S, H, D), dtype=q.dtype,
-                           device=q.device).transpose(1, 2)
+    out4 = _empty_like_input(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     which = route(q.dtype, D)
     args = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), out4.data_ptr(),
             B, H, KV, S, D, *q4.stride()[:3], *k4.stride()[:3],
             *v4.stride()[:3], *out4.stride()[:3], int(causal),
             -1 if window is None else int(window))
+    p_lse = None if lse is None else lse.data_ptr()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if which == "wgmma":        # exp2 scores: log2(e) folded in
             err = lib.fa_wgmma_launch(
-                *args, ctypes.c_float(math.log2(math.e) / D ** 0.5), stream)
+                *args, ctypes.c_float(math.log2(math.e) / D ** 0.5), p_lse,
+                stream)
         else:
             err = lib.fa_launch(DTYPES[q.dtype], *args,
-                                ctypes.c_float(1.0 / D ** 0.5), stream)
+                                ctypes.c_float(1.0 / D ** 0.5), p_lse, stream)
     if err:
         raise RuntimeError(f"flash_attention {which} launch failed: error "
                            f"{err}")
     flash_attention_bhsd.launches += 1
     flash_attention_bhsd.launches_by_route[which] += 1
-    return out4 if q.dim() == 4 else out4[0]
+    out = out4 if q.dim() == 4 else out4[0]
+    if not with_lse:
+        return out
+    return out, (lse if q.dim() == 4 else lse[0])
 
 
 flash_attention_bhsd.launches = 0
 flash_attention_bhsd.launches_by_route = {"wgmma": 0, "simt": 0}
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
+                        window: Optional[int] = None):
+    """The backward pass of ``flash_attention_bhsd``: q, k, v, its output
+    ``o`` and ``lse`` as the forward pass took and gave them, ``do`` the
+    gradient of ``o`` (any strides).  Returns (dq, dk, dv) in q's, k's and
+    v's shapes and dtype (for [B, ., S, D] inputs, [B, ., S, D] views of
+    tensors laid out [B, S, ., D], as the model's activations are).
+
+    CPU tensors take ``flash_attention_bwd_reference``; CUDA tensors launch
+    the two kernels of ``csrc/flash_attention_bwd.cu`` (dQ, then dK and
+    dV) and add one to ``flash_attention_bwd.launches``."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                             window)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    _check(q, k, v, window)
+    if o.shape != q.shape or do.shape != q.shape or o.dtype != q.dtype \
+            or do.dtype != q.dtype:
+        raise ValueError(f"o {tuple(o.shape)} {o.dtype} and do "
+                         f"{tuple(do.shape)} {do.dtype} must match q "
+                         f"{tuple(q.shape)} {q.dtype}")
+    if lse.shape != q.shape[:-1] or lse.dtype != torch.float32:
+        raise ValueError(f"want lse {tuple(q.shape[:-1])} float32, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    if not _rows_aligned(do):
+        do = do.contiguous()
+    if not _rows_aligned(o):
+        raise ValueError("o must have the layout the forward pass wrote")
+    from repro_torch.kernels._build import load_library
+    lib = load_library()
+    q4, k4, v4, o4, do4 = (_as4(t) for t in (q, k, v, o, do))
+    B, H, S, D = q4.shape
+    KV = k4.shape[1]
+    lse = lse.contiguous()
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    dq4, dk4, dv4 = (_empty_like_input(t) for t in (q, k, v))
+    strides = (ctypes.c_int64 * 24)(*(
+        s for t in (q4, k4, v4, o4, do4, dq4, dk4, dv4)
+        for s in t.stride()[:3]))
+    with torch.cuda.device(q.device):
+        err = lib.fab_launch(
+            DTYPES[q.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
+            o4.data_ptr(), do4.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            dq4.data_ptr(), dk4.data_ptr(), dv4.data_ptr(), B, H, KV, S, D,
+            strides, int(causal), -1 if window is None else int(window),
+            ctypes.c_float(1.0 / D ** 0.5),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_bwd launch failed: error {err}")
+    flash_attention_bwd.launches += 1
+    if q.dim() == 3:
+        return dq4[0], dk4[0], dv4[0]
+    return dq4, dk4, dv4
+
+
+flash_attention_bwd.launches = 0
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """B3 with a gradient: the forward pass is ``flash_attention_bhsd``
+    (which also writes each row's log-sum-exp), the backward pass
+    ``flash_attention_bwd``, both by the tensors' device: the kernels on
+    the card, the plain versions on the CPU.  q, k, v and the output are
+    kept for the backward pass, which recomputes the probabilities from
+    ``lse``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, window: Optional[int]):
+        o, lse = flash_attention_bhsd(q, k, v, causal=causal, window=window,
+                                      with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.window = causal, window
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do,
+                                         causal=ctx.causal, window=ctx.window)
+        return dq, dk, dv, None, None

@@ -25,12 +25,31 @@ checked on every call.  For tensors on
 the CPU it computes ``mamba1_scan_reference``, the plain PyTorch version
 and the twin of ``repro.kernels.ref.mamba1_scan_ref``.  The TPU kernel's
 ``blk_d``/``interpret`` have no meaning here.
+
+Gradient.  The JAX package has no backward kernel: it differentiates its
+chunked associative scan.  The port's Mamba-1 layers call B4 on the
+training path, so ``MambaScanFn`` gives it one: its backward pass is
+``mamba1_scan_bwd``, on the card the port's own hand-written kernels in
+``csrc/mamba_scan_bwd.cu`` (counted in ``mamba1_scan_bwd.launches``), on
+the CPU ``mamba1_scan_bwd_reference``, the same recurrence in plain
+PyTorch.  With ``g_t`` the gradient reaching ``h_t`` and
+``a_t = exp(dt_t A)``:
+
+    g_T = C_T dy_T + dh_last,   g_t = C_t dy_t + a_{t+1} * g_{t+1}
+    dC_t[n] = sum_d dy_t[d] h_t[d, n]
+    dB_t[n] = sum_d g_t[d, n] dt_t[d] x_t[d]
+    dx_t[d] = dt_t[d] sum_n g_t[d, n] B_t[n]
+    ddt_t[d] = sum_n g_t[d, n] (A[d, n] a_t[d, n] h_{t-1}[d, n] + x_t[d] B_t[n])
+    dA = sum_{b, t} g_t dt_t a_t h_{t-1},   dh0 = a_1 * g_1
 """
 from __future__ import annotations
 
 import torch
 
 STATE_SIZES = (8, 16, 32, 64)       # d_state values the kernel is built for
+# the backward kernel's threads per block and steps per recomputed chunk
+# (csrc/mamba_scan_bwd.cu: kThreads, kChunk), which size its scratch
+SCAN_BWD_THREADS, SCAN_BWD_CHUNK = 128, 16
 
 
 def mamba1_scan_reference(x, dt, Bt, Ct, A, h0=None):
@@ -48,6 +67,40 @@ def mamba1_scan_reference(x, dt, Bt, Ct, A, h0=None):
         h = h * da + (dt[:, t] * x[:, t])[:, :, None] * Bt[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Ct[:, t]))
     return torch.stack(ys, 1), h
+
+
+def mamba1_scan_bwd_reference(x, dt, Bt, Ct, A, h0, dy, dh_last):
+    """Plain PyTorch of the scan's backward pass (the recurrence above),
+    float32: the forward states recomputed and kept, then walked back.
+    ``h0`` and ``dh_last`` [B, Di, N] may be None (zeros).  Returns (dx,
+    ddt [B, T, Di], dB, dC [B, T, N], dA [Di, N], dh0 [B, Di, N])."""
+    B, T, Di = x.shape
+    N = Bt.shape[-1]
+    h = (torch.zeros((B, Di, N), dtype=torch.float32, device=x.device)
+         if h0 is None else h0)
+    hs, das = [h], []
+    for t in range(T):
+        da = torch.exp(dt[:, t, :, None] * A[None])
+        h = h * da + (dt[:, t] * x[:, t])[:, :, None] * Bt[:, t, None, :]
+        hs.append(h)
+        das.append(da)
+    g = (torch.zeros_like(h) if dh_last is None
+         else dh_last.float().clone())
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    dB, dC = torch.empty_like(Bt), torch.empty_like(Ct)
+    dA = torch.zeros_like(A)
+    for t in reversed(range(T)):
+        g = g + Ct[:, t, None, :] * dy[:, t, :, None]
+        h_prev, da = hs[t], das[t]
+        dC[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], hs[t + 1])
+        dB[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
+        s1 = torch.einsum("bdn,bn->bd", g, Bt[:, t])
+        gah = g * da * h_prev
+        dx[:, t] = dt[:, t] * s1
+        ddt[:, t] = (gah * A[None]).sum(-1) + x[:, t] * s1
+        dA += (gah * dt[:, t, :, None]).sum(0)
+        g = da * g
+    return dx, ddt, dB, dC, dA, g
 
 
 def _check(x, dt, Bt, Ct, A, h0, h_out=None) -> None:
@@ -138,3 +191,81 @@ def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None):
 
 
 mamba1_scan.launches = 0
+
+
+def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last):
+    """The backward pass of ``mamba1_scan``: its inputs (``h0`` may be
+    None), ``dy`` [B, T, Di] and ``dh_last`` [B, Di, N] (None: zeros), all
+    float32.  Returns (dx, ddt, dB, dC, dA, dh0) as
+    ``mamba1_scan_bwd_reference`` does.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    ``csrc/mamba_scan_bwd.cu`` (the scan backward, then the fixed-order
+    sums of its per-block partials) and add one to
+    ``mamba1_scan_bwd.launches``."""
+    if not x.is_cuda:
+        if x.device.type != "cpu":
+            raise ValueError(f"no kernel for device {x.device}")
+        return mamba1_scan_bwd_reference(x, dt, Bt, Ct, A, h0, dy, dh_last)
+    x, dt, Bt, Ct, A, dy = (t.contiguous() for t in (x, dt, Bt, Ct, A, dy))
+    h0 = None if h0 is None else h0.contiguous()
+    dh_last = None if dh_last is None else dh_last.contiguous()
+    _check(x, dt, Bt, Ct, A, h0, dh_last)
+    if dy.shape != x.shape or dy.dtype != torch.float32 \
+            or dy.device != x.device:
+        raise ValueError(f"want dy {tuple(x.shape)} float32 on {x.device}, "
+                         f"got {tuple(dy.shape)} {dy.dtype} {dy.device}")
+    from repro_torch.kernels._build import launch, load_library
+    lib = load_library()
+    B, T, Di = x.shape
+    N = A.shape[1]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    chunks = -(-T // SCAN_BWD_CHUNK)
+    blocks = -(-Di // (SCAN_BWD_THREADS * 8 // N))    # channel blocks
+    dx, ddt = torch.empty_like(x), torch.empty_like(x)
+    ckpt = torch.empty((B, chunks, Di, N), **f32)
+    part_bc = torch.empty((blocks, B, T, 2 * N), **f32)
+    part_a = torch.empty((B, Di, N), **f32)
+    dh0 = torch.empty((B, Di, N), **f32)
+    dbc = torch.empty((B, T, 2 * N), **f32)
+    dA = torch.empty((Di, N), **f32)
+    ptrs = [t.data_ptr() for t in (x, dt, Bt, Ct, A, dy)]
+    err = launch(x.get_device(), lib.msb_launch, *ptrs,
+                 None if h0 is None else h0.data_ptr(),
+                 None if dh_last is None else dh_last.data_ptr(),
+                 dx.data_ptr(), ddt.data_ptr(), ckpt.data_ptr(),
+                 part_bc.data_ptr(), part_a.data_ptr(), dh0.data_ptr(),
+                 dbc.data_ptr(), dA.data_ptr(), B, T, Di, N)
+    if err:
+        raise RuntimeError(f"mamba1_scan_bwd launch failed: cudaError {err}")
+    mamba1_scan_bwd.launches += 1
+    return dx, ddt, dbc[..., :N], dbc[..., N:], dA, dh0
+
+
+mamba1_scan_bwd.launches = 0
+
+
+class MambaScanFn(torch.autograd.Function):
+    """B4 with a gradient: the forward pass is ``mamba1_scan`` (no
+    ``h_out``), the backward pass ``mamba1_scan_bwd``, both by the
+    tensors' device.  The inputs are kept; the states are recomputed in
+    the backward pass.  Returns (y, h_last); ``h0`` gets a gradient when
+    it is given."""
+
+    @staticmethod
+    def forward(ctx, x, dt, Bt, Ct, A, h0):
+        y, h_last = mamba1_scan(x, dt, Bt, Ct, A, h0)
+        ctx.save_for_backward(x, dt, Bt, Ct, A, h0)
+        # an output nobody used gets None, not a tensor of zeros: training
+        # never reads h_last, and the kernel then skips its gradient
+        ctx.set_materialize_grads(False)
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        x, dt, Bt, Ct, A, h0 = ctx.saved_tensors
+        if dy is None:
+            dy = torch.zeros_like(x)
+        dx, ddt, dB, dC, dA, dh0 = mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy,
+                                                   dh_last)
+        return dx, ddt, dB, dC, dA, (None if h0 is None else dh0)

@@ -19,7 +19,7 @@ import argparse
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.configs.base import tiny_config
+from repro_torch.launch.train import tiny_config
 from repro_torch.models import model as M
 from repro_torch.tokenizer.bpe import default_tokenizer
 

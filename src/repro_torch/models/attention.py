@@ -2,8 +2,11 @@
 ``src/repro/models/attention.py``.
 
 ``HeadLayout``/``head_layout`` are the reference's, pure Python, with ``tp``
-an argument that defaults to 1 (one card, no mesh).  The train-time
-duplicated-kv weight layout is not ported yet.
+an argument that defaults to 1 (one card, no mesh).  ``duplicated_kv`` is
+the reference's train-time scope in which ``head_layout`` stores each kv
+head ``tp // kv`` times (at most 2) so that the kv weights shard on the
+tensor axis; it acts only at ``tp > 1``, so on one card it changes
+nothing.
 
 Activations are ``[B, S, Hp, Dh]`` and caches ``[B, Sc, KVs, Dh]``, as in
 the reference.  ``flash_attention`` and ``decode_attention`` call the
@@ -18,6 +21,8 @@ through ``decode_attention``.
 """
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import dataclasses
 import math
 from typing import Optional
@@ -25,15 +30,23 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch.dist.sharding import pad_to_multiple
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Norm, dense_init
 
+_DUP_KV: contextvars.ContextVar[bool] = contextvars.ContextVar(
+    "repro_torch_duplicate_kv", default=False)
 
-def pad_to_multiple(n: int, m: int) -> int:
-    """Round ``n`` up to the next multiple of ``m`` (``m < 1`` -> ``n``)."""
-    if m <= 1:
-        return n
-    return ((n + m - 1) // m) * m
+
+@contextlib.contextmanager
+def duplicated_kv(enabled: bool = True):
+    """Store kv heads duplicated r x in the weights so they shard on tp
+    (train/prefill layout; serving keeps the compact cache layout)."""
+    token = _DUP_KV.set(enabled)
+    try:
+        yield
+    finally:
+        _DUP_KV.reset(token)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,6 +68,10 @@ def head_layout(n_heads: int, n_kv_heads: int, d_head: int,
         kv_store, g = n_kv_heads, n_kv_heads
     elif tp % n_kv_heads == 0:
         kv_store, g = n_kv_heads, tp
+        # weight-level kv duplication under ``duplicated_kv`` (small r only:
+        # weights and cache cost r x)
+        if _DUP_KV.get() and tp // n_kv_heads <= 2:
+            kv_store = tp
     else:  # e.g. whisper kv=12, tp=16: pad kv alongside q
         kv_store, g = pad_to_multiple(n_kv_heads, tp), pad_to_multiple(n_kv_heads, tp)
     r = g // kv_store

@@ -13,7 +13,10 @@ top-level leaves, zamba2's one ``shared_block`` and whisper's
 ``enc_norm`` among them, keep their path.  Each leaf keeps the port's
 dtype (the ssm layers' ``D``, ``dt_bias`` and ``A_log`` and the moe
 router are float32 in a bf16 model, as in the reference).  Only the
-no-mesh, ``tp = 1`` layout is carried.
+no-mesh, ``tp = 1`` layout is carried.  ``params_to_reference`` goes the
+other way, restacking the periods: the port's parameters, or their
+``.grad``s, as the reference's tree, so that the tests can compare
+gradients leaf by leaf with ``jax.grad``'s.
 """
 from __future__ import annotations
 
@@ -65,6 +68,33 @@ def params_from_reference(tree: Dict, cfg: ModelConfig, device) -> Model:
     if missing:
         raise KeyError(f"no reference weights for {sorted(missing)}")
     return model
+
+
+def params_to_reference(model: Model, *, grads: bool = False) -> Dict:
+    """The port's parameters (or, with ``grads``, their gradients; zeros
+    where a parameter has none) as the reference's parameter tree: nested
+    dicts of float32 numpy arrays, each stage's periods stacked on a
+    leading axis, the inverse of ``params_from_reference``."""
+    tree: Dict = {}
+    periods: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    for name, param in model.named_parameters():
+        t = param.grad if grads else param
+        arr = (np.zeros(tuple(param.shape), np.float32) if t is None
+               else t.detach().float().cpu().numpy())
+        parts = name.split(".")
+        if parts[0] == "stages":
+            periods.setdefault((parts[1], *parts[3:]), {})[int(parts[2])] = arr
+        else:
+            _put(tree, parts, arr)
+    for path, per in periods.items():
+        _put(tree, list(path), np.stack([per[i] for i in range(len(per))]))
+    return tree
+
+
+def _put(tree: Dict, path, value) -> None:
+    for key in path[:-1]:
+        tree = tree.setdefault(key, {})
+    tree[path[-1]] = value
 
 
 def cache_from_reference(tree: Dict, device) -> Dict:

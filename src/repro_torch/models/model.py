@@ -28,11 +28,15 @@ sinusoidal positions to its token embeddings, and each decoder layer
 attends the encoder's output through its ``cross`` attention, whose K/V
 prefill projects once and stores as ``xk``/``xv`` in the layer's cache
 entry.  A moe layer runs ``models.moe`` in place of its MLP (qwen2-moe
-adds shared experts behind a sigmoid gate); its aux loss is computed and
-dropped, as the reference's ``prefill`` drops it.
+adds shared experts behind a sigmoid gate); ``backbone`` returns its aux
+loss summed over the layers, which ``Model.loss_fn`` weighs into the
+training loss and ``prefill`` and decoding drop, as the reference's do.
 
-Entry points: ``Model.forward``, ``Model.prefill``, ``Model.decode_step``,
-``Model.decode_multi`` and ``cache_specs``, with the reference's shapes.
+Entry points: ``Model.loss_fn`` (training: ``backbone`` -> ``chunked_ce``,
+the cross-entropy in sequence chunks under ``torch.utils.checkpoint``;
+``remat`` runs each period under it too), ``Model.forward``,
+``Model.prefill``, ``Model.decode_step``, ``Model.decode_multi`` and
+``cache_specs``, with the reference's shapes.
 The cache is ``{stage: {"layer{i}": entry}}`` over the decoder stages
 (not whisper's encoder), with a leading period axis: an attention entry
 is ``{"k", "v"}``, ``[n_periods, B, Sc, KVs, Dh]`` (window layers hold a
@@ -49,9 +53,11 @@ per layer template, a decode step's lengths, write slots and slot
 positions) is computed once per call, not once per layer.
 
 Attention and the Mamba-1 scan run through ``repro_torch.kernels.ops``:
-the CUDA kernels (B3 at prefill, whisper's encoder included, B2 at
-decode, whisper's cross-attention included, B4 in every Mamba-1 layer)
-for tensors on the card, their plain versions on the CPU.  Projections,
+the CUDA kernels (B3 at prefill and in training, whisper's encoder
+included, B2 at decode, whisper's cross-attention included, B4 in every
+Mamba-1 layer) for tensors on the card, their plain versions on the CPU;
+when a gradient is required, B3 and B4 run through their autograd
+Functions, whose backward passes are kernels too.  Projections,
 MLPs, the experts, cross-attention at prefill, Mamba-2's SSD and logits
 are ``torch`` ops and matrix products, as the reference leaves them to
 XLA.  Weights are drawn from an explicit
@@ -67,6 +73,7 @@ from typing import Dict, List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
@@ -227,25 +234,26 @@ class AttnLayer(nn.Module):
 
     def _ffn(self, x):
         """norm2 -> MLP, or the experts (plus the shared experts behind
-        their sigmoid gate, in float32) -> residual.  The experts' aux loss
-        is dropped: it matters only to a training loss."""
+        their sigmoid gate, in float32) -> residual.  Returns (x, aux): the
+        experts' float32 aux loss, None without experts."""
         if self.spec.moe:
             h = self.norm2(x)
-            y, _ = self.moe(h)
+            y, aux = self.moe(h)
             if hasattr(self, "shared_mlp"):
                 g = torch.sigmoid((h @ self.shared_gate).float())
                 y = y + (g * self.shared_mlp(h).float()).to(y.dtype)
-            return x + y
+            return x + y, aux
         if self.spec.mlp is not None:
-            return x + self.mlp(self.norm2(x))
-        return x
+            return x + self.mlp(self.norm2(x)), None
+        return x, None
 
     def full(self, x, rot, *, want_cache: bool, enc_out=None):
-        """Train/prefill over the whole sequence.  Returns (y, {k, v} | None),
-        the cache entry sized to its slot (a ring of ``window`` slots when
-        the sequence is longer: slot j holds the last token with
-        ``pos % window == j``); a cross layer projects the cross K/V from
-        ``enc_out`` [B, T, d] and adds them to its entry as ``xk``/``xv``."""
+        """Train/prefill over the whole sequence.  Returns (y, {k, v} | None,
+        aux), the cache entry sized to its slot (a ring of ``window`` slots
+        when the sequence is longer: slot j holds the last token with
+        ``pos % window == j``), and the experts' aux loss (None without
+        experts); a cross layer projects the cross K/V from ``enc_out``
+        [B, T, d] and adds them to its entry as ``xk``/``xv``."""
         S = x.shape[1]
         q, k, v = self._qkv(x, rot)
         o = flash_attention(q, k, v, self.layout, causal=self.spec.causal,
@@ -256,9 +264,9 @@ class AttnLayer(nn.Module):
             xk, xv = self.cross.project_kv(enc_out)
             x = x + self.cross.output_proj(cross_attention(xq, xk, xv,
                                                            self.layout))
-        x = self._ffn(x)
+        x, aux = self._ffn(x)
         if not want_cache:
-            return x, None
+            return x, None, aux
         w = self.spec.window
         if w is not None and S > w:
             k = torch.roll(k[:, -w:], S % w, dims=1)
@@ -266,7 +274,7 @@ class AttnLayer(nn.Module):
         entry = {"k": k, "v": v}
         if self.spec.cross:
             entry["xk"], entry["xv"] = xk, xv
-        return x, entry
+        return x, entry, aux
 
     def decode(self, x, rot, entry, step: "DecodeStep"):
         """One token against a cache entry [B, Sc, KVs, Dh], written in
@@ -287,7 +295,7 @@ class AttnLayer(nn.Module):
             xq = self.cross.project_q(self.norm_x(x))
             x = x + self.cross.output_proj(decode_attention(
                 xq, xk, xv, valid, pos, self.layout))
-        return self._ffn(x)
+        return self._ffn(x)[0]
 
 
 class SsmLayer(nn.Module):
@@ -302,9 +310,10 @@ class SsmLayer(nn.Module):
                                  dtype, device, generator)
 
     def full(self, x, rot, *, want_cache: bool, enc_out=None):
-        """Prefill from scratch: (y, {conv, ssm} | None), the final states."""
+        """Prefill from scratch: (y, {conv, ssm} | None, None), the final
+        states (and no aux loss)."""
         y, state = self.ssm(self.norm(x))
-        return x + y, (state if want_cache else None)
+        return x + y, (state if want_cache else None), None
 
     def decode(self, x, rot, entry, step: "DecodeStep"):
         """One token from the states in ``entry``, which it overwrites with
@@ -360,6 +369,50 @@ class DecodeStep:
                 torch.arange(Sc, dtype=torch.int32,
                              device=dev).expand(self.batch, Sc))
         return self._slots[key]
+
+
+# ---------------------------------------------------------------------------
+# logits and the training loss
+# ---------------------------------------------------------------------------
+
+
+def lm_logits(x, table):
+    """x: [B, S, d]; table: [Vp, d] -> logits [B, S, Vp] in x's dtype."""
+    return x @ table.T
+
+
+def _ce_chunk(x, table, targets, vocab_size: int):
+    """Sum over one chunk's tokens of logsumexp(logits) - logit[target], in
+    float32, vocabulary padding masked to -1e30."""
+    logits = lm_logits(x, table).float()
+    v = logits.shape[-1]
+    if v > vocab_size:
+        pad = torch.arange(v, device=logits.device) >= vocab_size
+        logits = torch.where(pad, torch.full_like(logits, -1e30), logits)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0]
+    return (logz - gold).sum()
+
+
+def chunked_ce(x, table, targets, vocab_size: int, n_chunks: int = 8):
+    """Mean cross-entropy without materializing the [B, S, Vp] logits (the
+    reference's ``chunked_ce``): the sequence is split into ``n_chunks``
+    (halved until it divides S), each chunk computes its logits and CE sum
+    under ``torch.utils.checkpoint``, so the backward pass recomputes them
+    and at most one chunk's logits are live, as the reference's
+    ``jax.checkpoint`` scan body does."""
+    B, S, _ = x.shape
+    while S % n_chunks != 0:
+        n_chunks //= 2
+    n_chunks = max(n_chunks, 1)
+    T = S // n_chunks
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c in range(n_chunks):
+        sl = slice(c * T, (c + 1) * T)
+        total = total + checkpoint(_ce_chunk, x[:, sl], table,
+                                   targets[:, sl], vocab_size,
+                                   use_reentrant=False)
+    return total / (B * S)
 
 
 # ---------------------------------------------------------------------------
@@ -430,9 +483,12 @@ class Model(nn.Module):
             return self.shared_block
         return period[f"layer{li}"]
 
+    def _table(self):
+        """The unembedding table [Vp, d]: the embedding when tied."""
+        return self.embed if self.cfg.tie_embeddings else self.lm_head
+
     def _logits(self, x):
-        table = self.embed if self.cfg.tie_embeddings else self.lm_head
-        return x @ table.T
+        return lm_logits(x, self._table())
 
     def _rotations(self, positions, extras):
         """The rotary cos/sin of each layer template, computed once per call
@@ -465,7 +521,29 @@ class Model(nn.Module):
             x = x + sinusoid_embed(pos, self.cfg.d_model).to(x.dtype)[None]
         return x
 
-    def _encode(self, frames):
+    def _run_period(self, stage: Stage, period, x, rot, *, want_cache: bool,
+                    enc_out=None, remat: bool = False):
+        """One period of ``stage`` over the whole sequence: (x, {"layer{i}":
+        entry | None}, aux | None), aux the sum of its moe layers' aux
+        losses.  With ``remat`` the period runs under
+        ``torch.utils.checkpoint`` and only its input is kept for the
+        backward pass, which runs it again (the reference's
+        ``jax.checkpoint(period_body)``)."""
+        def body(x):
+            entries, aux = {}, None
+            for li, spec in enumerate(stage.specs):
+                x, e, a = self._layer(period, li, spec).full(
+                    x, rot[spec] if rot is not None else None,
+                    want_cache=want_cache, enc_out=enc_out)
+                entries[f"layer{li}"] = e
+                if a is not None:
+                    aux = a if aux is None else aux + a
+            return x, entries, aux
+        if remat:
+            return checkpoint(body, x, use_reentrant=False)
+        return body(x)
+
+    def _encode(self, frames, *, remat: bool = False):
         """Whisper's encoder: frames [B, T, d] (the conv frontend is a stub)
         plus sinusoidal positions -> the encoder stage's bidirectional,
         rope-free layers (B3) -> ``enc_norm``."""
@@ -474,38 +552,68 @@ class Model(nn.Module):
                                         frames.device).to(frames.dtype)[None]
         stage = self.encoder_stage
         for period in self.stages[stage.name]:
-            for li, spec in enumerate(stage.specs):
-                x, _ = period[f"layer{li}"].full(x, None, want_cache=False)
+            x, _, _ = self._run_period(stage, period, x, None,
+                                       want_cache=False, remat=remat)
         return self.enc_norm(x)
 
-    def backbone(self, tokens, extras=None, *, want_cache: bool = False):
+    def backbone(self, tokens, extras=None, *, want_cache: bool = False,
+                 remat: bool = False):
         """Embeddings -> stages -> final norm.  Returns (hidden [B, S, d],
-        cache | None).  Whisper takes ``extras["frames"]`` [B, T, d]."""
+        cache | None, aux): aux is the moe layers' aux loss summed per
+        period, then over each stage's periods, then over the stages, in
+        float32 (zero without experts), as the reference sums it.  Whisper
+        takes ``extras["frames"]`` [B, T, d].  ``remat``: each period under
+        ``torch.utils.checkpoint`` (training; no cache)."""
         extras = extras or {}
+        if remat and want_cache:
+            raise ValueError("remat recomputes the periods in the backward "
+                             "pass and keeps no cache")
         enc_out = None
         if self.encoder_stage is not None:
             if "frames" not in extras:
                 raise ValueError(f"{self.cfg.name} encodes extras['frames'] "
                                  f"[B, T, d] before its decoder")
-            enc_out = self._encode(extras["frames"])
+            enc_out = self._encode(extras["frames"], remat=remat)
         S = tokens.shape[1]
         x = self._embed_tokens(tokens)
         rot = self._rotations(torch.arange(S, device=self.device), extras)
         cache: Dict[str, dict] = {}
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for stage in self.decoder_stages:
             entries = {f"layer{li}": [] for li in range(len(stage.specs))}
+            auxs = []
             for period in self.stages[stage.name]:
-                for li, spec in enumerate(stage.specs):
-                    x, e = self._layer(period, li, spec).full(
-                        x, rot[spec], want_cache=want_cache, enc_out=enc_out)
-                    if want_cache:
-                        entries[f"layer{li}"].append(e)
+                x, es, a = self._run_period(stage, period, x, rot,
+                                            want_cache=want_cache,
+                                            enc_out=enc_out, remat=remat)
+                if a is not None:
+                    auxs.append(a)
+                if want_cache:
+                    for key, e in es.items():
+                        entries[key].append(e)
+            if auxs:
+                aux = aux + torch.stack(auxs).sum()
             if want_cache:
                 cache[stage.name] = {
                     key: {n: torch.stack([e[n] for e in es]) for n in es[0]}
                     for key, es in entries.items()}
         x = self.final_norm(x)
-        return x, (cache if want_cache else None)
+        return x, (cache if want_cache else None), aux
+
+    def loss_fn(self, batch, *, remat: bool = False, unroll: bool = False,
+                aux_weight: float = 0.01, ce_chunks: int = 8):
+        """The training loss of ``batch`` ({"tokens", "targets"} [B, S] and
+        the modality extras: ``frames``, ``mrope_positions``): the chunked
+        cross-entropy plus ``aux_weight`` times the moe aux loss.  Returns
+        (loss, {"ce", "aux"}), float32 0-d tensors.  ``unroll`` is the
+        reference's scan unrolling, kept for its signature: eager PyTorch
+        runs every loop unrolled, so it changes nothing."""
+        extras = {k: v for k, v in batch.items()
+                  if k not in ("tokens", "targets")}
+        x, _, aux = self.backbone(batch["tokens"], extras, remat=remat)
+        ce = chunked_ce(x, self._table(), batch["targets"],
+                        self.cfg.vocab_size, n_chunks=ce_chunks)
+        return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
     def forward(self, tokens, extras=None):
         """Full forward returning dense logits [B, S, Vp]."""
@@ -514,7 +622,7 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens, extras=None):
         """Returns (last-token logits [B, 1, Vp], cache)."""
-        x, cache = self.backbone(tokens, extras, want_cache=True)
+        x, cache, _ = self.backbone(tokens, extras, want_cache=True)
         return self._logits(x[:, -1:]), cache
 
     @torch.no_grad()

@@ -46,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.models.attention import pad_to_multiple
+from repro_torch.dist.sharding import pad_to_multiple
 from repro_torch.models.layers import _normal, dense_init
 
 NEG_INF = -1e30

@@ -13,7 +13,9 @@ Mamba-1 runs its selective scan through ``repro_torch.kernels.ops``
 (``mamba_scan``: B4 on the card, its plain version on the CPU), where the
 reference runs a chunked associative scan that computes the same
 function; the kernel carries the state in and out, so prefill fills the
-cache and decode steps it with the same call.  Mamba-2 runs the
+cache and decode steps it with the same call; in training it runs
+through ``MambaScanFn``, whose backward pass is B4's backward kernel.
+Mamba-2 runs the
 reference's chunked SSD as torch einsums, with no kernel (the JAX package
 has none for it); its three-operand einsums are split into two-operand
 ones, which sum in another order.  Decode is the same mix at S = 1 from

@@ -1,0 +1,94 @@
+"""The training step: the port of ``src/repro/train/step.py``.
+
+``train_step`` runs ``n_micro`` microbatches through ``Model.loss_fn`` and
+``backward``, sums their gradients in float32, divides the sum by
+``n_micro``, and takes one AdamW step (``optim.apply_updates``), which
+writes the model's parameters in place from the new float32 master.  The
+microbatches are split as the reference's ``to_micro`` splits them (the
+batch axis, dim 1 for ``mrope_positions`` [3, B, S]); ``ce``, ``aux`` and
+``loss`` are the microbatches' means.
+
+On the card, attention (B3) and the Mamba-1 scan (B4) run forward and
+backward through the port's kernels (``kernels.ops`` picks their autograd
+Functions when a gradient is required).  The reference's ZeRO-1 gradient
+shardings need a mesh, which is not ported (ROADMAP.md, Queue 1): with no
+mesh there is nothing to constrain, and ``pick_n_micro`` sees ``dp = 1``.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.dist.sharding import current as mesh_ctx
+from repro_torch.train import optim
+
+
+def pick_n_micro(cfg: ModelConfig, global_batch: int, seq_len: int,
+                 budget_bytes: float = 256e6, cap: int = 8) -> int:
+    """Smallest power-of-two microbatch count keeping the per-device
+    residual-stream slab under ``budget_bytes``."""
+    dp = mesh_ctx().dp
+    per_dev = max(global_batch // dp, 1)
+    slab = per_dev * seq_len * cfg.d_model * 2  # bf16
+    n = 1
+    while (slab / n > budget_bytes and n < cap
+           and global_batch % (2 * n) == 0
+           and global_batch // (2 * n) >= dp):
+        n *= 2
+    return n
+
+
+def to_micro(batch: Dict[str, torch.Tensor], n_micro: int) -> list:
+    """``batch`` as ``n_micro`` microbatches, split along the batch axis
+    (dim 1 of ``mrope_positions`` [3, B, S], dim 0 of everything else)."""
+    def split(key, x):
+        dim = 1 if key == "mrope_positions" else 0
+        if x.shape[dim] % n_micro:
+            raise ValueError(f"{key}: batch {x.shape[dim]} does not split "
+                             f"into {n_micro} microbatches")
+        return torch.chunk(x, n_micro, dim=dim)
+    parts = {k: split(k, v) for k, v in batch.items()}
+    return [{k: v[i] for k, v in parts.items()} for i in range(n_micro)]
+
+
+def make_train_step(model, ocfg: optim.AdamWConfig, *, n_micro: int = 1,
+                    unroll: bool = False, remat: bool = True,
+                    ce_chunks: int = 8):
+    """Builds ``train_step(opt_state, batch) -> (opt_state, metrics)`` for
+    ``model`` (a ``repro_torch.models.model.Model``), whose parameters it
+    updates in place.  ``batch`` holds tensors on the model's device;
+    ``metrics`` are float32 0-d tensors on it (``ce``, ``aux``, ``loss``,
+    ``lr``, ``grad_norm``), so a step reads nothing back to the host."""
+    params = dict(model.named_parameters())
+
+    def train_step(opt_state: optim.OptState, batch):
+        micro = [batch] if n_micro == 1 else to_micro(batch, n_micro)
+        gsum: Dict[str, torch.Tensor] = {}
+        losses, metrics = [], []
+        for b in micro:
+            for p in params.values():
+                p.grad = None
+            loss, m = model.loss_fn(b, remat=remat, unroll=unroll,
+                                    ce_chunks=ce_chunks)
+            loss.backward()
+            for k, p in params.items():
+                g = (torch.zeros(p.shape, dtype=torch.float32,
+                                 device=p.device) if p.grad is None
+                     else p.grad.to(torch.float32))
+                gsum[k] = g if k not in gsum else gsum[k].add_(g)
+            losses.append(loss.detach())
+            metrics.append({k: v.detach() for k, v in m.items()})
+        for p in params.values():
+            p.grad = None
+        if n_micro > 1:
+            for g in gsum.values():
+                g.div_(n_micro)
+        loss = torch.stack(losses).mean()
+        out = {k: torch.stack([m[k] for m in metrics]).mean()
+               for k in metrics[0]}
+        _, new_state, om = optim.apply_updates(params, gsum, opt_state, ocfg)
+        return new_state, dict(out, loss=loss, **om)
+
+    return train_step

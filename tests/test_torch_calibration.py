@@ -24,7 +24,7 @@ import torch
 
 from repro.core.devmodel import DeviceModel as RefDeviceModel
 from repro_torch.configs import ShapeCell, get_config
-from repro_torch.configs.base import tiny_config
+from repro_torch.launch.train import tiny_config
 from repro_torch.launch import dryrun
 
 ROOT = Path(__file__).resolve().parents[1]

@@ -20,7 +20,7 @@ import repro.configs as JC
 from repro.launch.train import tiny_config as jax_tiny_config
 from repro.models import layers as JL
 import repro_torch.configs as TC
-from repro_torch.configs.base import tiny_config
+from repro_torch.launch.train import tiny_config
 from repro_torch.models import layers as TL
 
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -190,11 +190,13 @@ def test_layer_with_shared_experts_matches(cf):
     assert hasattr(layer, "shared_mlp") and hasattr(layer, "shared_gate")
     x = rng.standard_normal((2, 20, jcfg.d_model)).astype(np.float32)
     p0 = jax.tree.map(lambda a: jnp.asarray(a[0]), tree[stage.name]["layer0"])
-    want, _, _ = JM._attn_layer_full(p0, jnp.asarray(x), spec, jcfg,
-                                     JM._layout(jcfg), {}, want_cache=False)
+    want, _, want_aux = JM._attn_layer_full(p0, jnp.asarray(x), spec, jcfg,
+                                            JM._layout(jcfg), {},
+                                            want_cache=False)
     rot = model._rotations(torch.arange(20), {})
     tspec = TM.build_plan(port_config(jcfg))[0].specs[0]
     with torch.no_grad():
-        got, _ = layer.full(torch.from_numpy(x), rot[tspec],
-                            want_cache=False)
+        got, _, aux = layer.full(torch.from_numpy(x), rot[tspec],
+                                 want_cache=False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux), **TOL)
