@@ -202,15 +202,19 @@ fails:
    tests/test_torch_train_cuda.py's cases (tests/test_kernels.py's shapes;
    every head dim at S 1, 17 and 512 with causal, bidirectional and
    window-16 masks and GQA groups of 1, 7 and 48 through the model's views
-   and a grad_output of other strides; whisper's 8 x 1,500 encoder): the
-   kernel forward's ``lse`` against the plain log-sum-exp, the backward
-   kernels against ``flash_attention_bwd_reference`` on the same inputs,
+   and a grad_output of other strides; whisper's 8 x 1,500 encoder), so
+   both of its routes (``bwd_route``: bf16 at D 64 and 128 on the tensor
+   cores, the rest on the CUDA cores): the kernel forward's ``lse``
+   against the plain log-sum-exp, the backward kernels against
+   ``flash_attention_bwd_reference`` on the same inputs,
    ``FlashAttentionFn`` against autograd of the plain forward (``BWD_TOLS``:
    fp32 atol = rtol = 1e-4; bf16 rtol 2e-2 with B3's atol 8e-3);
 29. B4's backward likewise (float32; rtol 1e-4 with an atol of 1e-4 times
    each gradient's largest magnitude): the scan cases with nonzero h0 and
    h_last gradients, every d_state at T 1, 15, 17, 40 and 512, and
-   falcon-mamba's 8 x 512 x 8,192 x 16;
+   falcon-mamba's 8 x 512 x 8,192 x 16, the kernel from checkpoints that
+   the forward kernel wrote for it (``MambaScanFn``) and from checkpoints
+   it asked the forward kernel for itself (the wrapper without ``ckpt``);
 30. training at full width: ``python -m repro_torch.launch.train --arch
    qwen2-0.5b --scale full --batch 8 --seq 512`` for 6 steps with a
    checkpoint every 3, then to step 9 with ``--resume auto`` (run with the
@@ -222,20 +226,23 @@ fails:
    and v at full depth need about 116 GB), bf16, 8 x 512 tokens: the
    median of three steps by CUDA events, tokens/s, peak allocated memory,
    the busy share of one step (``torch.profiler``), B3 (or B4) forward and
-   backward launched 24 (or 8) times a step;
+   backward launched 24 (or 8) times a step, B3's backward all on its
+   tensor-core (``wgmma``) route;
 31. training identity, float32, TF32 off: qwen2-0.5b and falcon-mamba-7b
    at full width cut to 2 layers, three ``train_step``s of 2 x 64 tokens
    on the card and on the CPU from the same weights and batches; losses
    and grad norms within 1e-5 relative at step 1 and 1e-4 after
    (tests/test_torch_train_cuda.py, ``IDENTITY_TOL``);
 32. the backward kernels' times: B3's at 8 x 512 with qwen2-0.5b's heads
-   (bf16, causal) and at whisper's 8 x 1,500 (bidirectional), B4's at
-   8 x 512 x 8,192 x 16; each held to its plain version, then timed as
-   phase 10 times kernels, with SDPA's backward as B3's yardstick.
+   (bf16, causal) and at whisper's 8 x 1,500 (bidirectional), both on the
+   ``wgmma`` route, B4's at 8 x 512 x 8,192 x 16 from the forward's
+   checkpoints; each held to its plain version, then timed as phase 10
+   times kernels, with SDPA's backward as B3's yardstick.
 
 The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
-phases above, and the backward kernels ``B3-bwd`` and ``B4-bwd``); the
-last line is ``{"ok": true, "device": {...}}``.
+phases above, and the backward kernels ``B3-bwd``, whose entries name the
+route their launch counts moved on as ``kernel_route``, and ``B4-bwd``);
+the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1967,11 +1974,12 @@ def _train_losses(out: str) -> dict:
 
 def _train_launches(out: str) -> dict:
     m = re.search(r"kernel launches: flash_fwd=(\d+) flash_bwd=(\d+) "
-                  r"scan_fwd=(\d+) scan_bwd=(\d+)", out)
+                  r"scan_fwd=(\d+) scan_bwd=(\d+) flash_bwd_wgmma=(\d+)",
+                  out)
     if not m:
         fail("launch.train printed no launch counts")
-    return dict(zip(("flash_fwd", "flash_bwd", "scan_fwd", "scan_bwd"),
-                    map(int, m.groups())))
+    return dict(zip(("flash_fwd", "flash_bwd", "scan_fwd", "scan_bwd",
+                     "flash_bwd_wgmma"), map(int, m.groups())))
 
 
 def train_cli() -> dict:
@@ -1981,7 +1989,8 @@ def train_cli() -> dict:
     before this process touches the card).  Both exit 0; the second
     resumes from step 6 and reaches step 9; every logged loss is finite and
     step 9's is below step 1's; each process launched B3 forward and
-    backward at least 24 times per step it ran."""
+    backward at least 24 times per step it ran, the backward on its
+    tensor-core (``wgmma``) route."""
     import shutil
     ckpt = ROOT / "build" / "train_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2010,7 +2019,7 @@ def train_cli() -> dict:
     n = layer_calls(TRAIN_ARCH, "attn")
     for out, ran in ((out1, 6), (out2, 3)):
         got = _train_launches(out)
-        for k in ("flash_fwd", "flash_bwd"):
+        for k in ("flash_fwd", "flash_bwd", "flash_bwd_wgmma"):
             if got[k] < n * ran:
                 fail(f"launch.train launched {k} {got[k]} times in "
                      f"{ran} steps, want >= {n * ran}")
@@ -2022,7 +2031,7 @@ def train_cli() -> dict:
 
 
 def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
-                     seq: int = 512, **cut) -> dict:
+                     seq: int = 512, bwd_routes=None, **cut) -> dict:
     """Phase 30, in process: ``arch`` at full width in bf16 (depth cut by
     ``cut``), ``make_train_step`` as ``launch.train`` builds it (remat off, 2 CE
     chunks, its AdamW schedule); one warm-up step, then three steps timed
@@ -2030,7 +2039,9 @@ def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
     allocated memory, and one more step under ``torch.profiler`` for the
     device's busy share.  ``wrappers`` maps a name to (wrapper, launches
     wanted per step): every count is set to 0 just before the timed steps
-    and read just after.  Returns the numbers and the counts."""
+    and read just after; ``bwd_routes`` (route -> launches per step) is
+    what B3's backward must have launched on each route, exactly.
+    Returns the numbers and the counts."""
     import statistics
 
     import torch
@@ -2057,8 +2068,12 @@ def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
     state, m = step(state, batches[0])                  # warm-up
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    from repro_torch.kernels.flash_attention import flash_attention_bwd
+    by_route = flash_attention_bwd.launches_by_route
     for w, _ in wrappers.values():
         w.launches = 0
+    for r in by_route:
+        by_route[r] = 0
     torch.cuda.reset_peak_memory_stats(dev)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     times, losses = [], []
@@ -2070,11 +2085,16 @@ def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
         times.append(start.elapsed_time(end))
         losses.append(float(m["loss"]))
     counts = {k: w.launches for k, (w, _) in wrappers.items()}
+    routes = dict(by_route)
     peak = torch.cuda.max_memory_allocated(dev)
     for k, (_, per_step) in wrappers.items():
         if counts[k] < per_step * len(times):
             fail(f"{arch} training launched {k} {counts[k]} times in "
                  f"{len(times)} steps, want >= {per_step * len(times)}")
+    if bwd_routes and routes != {r: bwd_routes.get(r, 0) * len(times)
+                                 for r in routes}:
+        fail(f"{arch} training launched B3's backward {routes} by route in "
+             f"{len(times)} steps, want {bwd_routes} a step")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{arch} training losses are not finite: {losses}")
     wall_ms, dev_ms, n_kernels, top = device_share(
@@ -2086,7 +2106,7 @@ def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
         f"step {step_ms:.3f} ms (median of {times}), "
         f"{batch * seq / (step_ms / 1e3):.1f} tokens/s, peak allocated "
         f"{peak / 2**30:.2f} GiB, losses {losses}, launches {counts} over "
-        f"{len(times)} steps; built and warmed in {build_s:.1f} s; profile "
+        f"{len(times)} steps (B3 backward by route {routes}); built and warmed in {build_s:.1f} s; profile "
         f"of one step: wall {wall_ms:.3f} ms (profiler on), device kernels "
         f"{dev_ms:.3f} ms in {n_kernels} launches, busy share {share}; top: "
         f"{top}")
@@ -2134,14 +2154,17 @@ def time_flash_bwd(dev, launches: int, B, S, H, KV, D, causal=True) -> dict:
     retained graph, first checked to give the same gradients) and its
     bound: bytes (q, k, v, o, dO, lse read, dq, dk, dv written) over 3.35
     TB/s against 10 D operations per kept (query, key) pair (the five
-    products Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over 989 TFLOP/s."""
+    products Q K^T, dO V^T, P^T dO, dS K, dS^T Q) over 989 TFLOP/s.
+    Fails unless every checked and timed call counted on
+    ``bwd_route(bfloat16, D)`` and on no other route."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels.flash_attention import (
-        flash_attention_bhsd, flash_attention_bwd,
+        bwd_route, flash_attention_bhsd, flash_attention_bwd,
         flash_attention_bwd_reference)
     cases = _train_cases()
+    which = bwd_route(torch.bfloat16, D)
     c = cases.attn_cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H,
                                      KV=KV, D=D)
     q, k, v = c["q"], c["k"], c["v"]
@@ -2158,6 +2181,7 @@ def time_flash_bwd(dev, launches: int, B, S, H, KV, D, causal=True) -> dict:
 
     def plain():
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal)
+    before = dict(flash_attention_bwd.launches_by_route)
     got, want = kernel(), plain()
     err = 0.0
     for gg, ww in zip(got, want):
@@ -2184,15 +2208,23 @@ def time_flash_bwd(dev, launches: int, B, S, H, KV, D, causal=True) -> dict:
     flops = 10 * D * H * B * pairs
     bound_ms, bound_by = _bound(nbytes, flops)
     dev_ms = _device_ms_per_call(kernel)
+    moved = [r for r, n in flash_attention_bwd.launches_by_route.items()
+             if n != before[r]]
+    if moved != [which]:
+        fail(f"{name}: the checked and timed calls ran on routes {moved}, "
+             f"not on {which} alone")
     log(f"{name}: H={H} KV={KV} D={D} "
-        f"{'causal' if causal else 'bidirectional'}: max abs err {err:.3g}, "
-        f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
+        f"{'causal' if causal else 'bidirectional'}, {which} route: max abs "
+        f"err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
+        f"backward "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} "
         f"B, {flops} flop), achieved {flops / (ms * 1e-3) / 1e12:.2f} "
         f"TFLOP/s; device time per call (profiler): kernel {dev_ms}, SDPA "
         f"backward {_device_ms_per_call(sdpa_bwd)}")
-    return {"name": name, "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+    source = ("flash_attention_bwd_wgmma.cu" if which == "wgmma"
+              else "flash_attention_bwd.cu")
+    return {"name": name, "route": "cuda", "kernel_route": which,
+            "source": f"src/repro_torch/csrc/{source}",
             "replaces": "src/repro/kernels/flash_attention.py:77",
             "launches": launches, "max_abs_err": err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
@@ -2201,16 +2233,19 @@ def time_flash_bwd(dev, launches: int, B, S, H, KV, D, causal=True) -> dict:
 
 def time_scan_bwd(dev, launches: int) -> dict:
     """Phase 32: B4's backward at falcon-mamba's training shape (8 x 512,
-    8,192 channels, 16 states, no initial state, no h_last gradient, as
-    training calls it), held to its plain version, then timed beside it
-    with its bound: bytes (x, dt, dy, B_t, C_t, A read; dx, ddt, dB, dC, dA
-    written) over 3.35 TB/s against 20 float32 operations per (b, t, d, n)
-    (the states recomputed, then the recurrence above) over 67 TFLOP/s;
-    no one PyTorch call computes it, so no library time."""
+    8,192 channels, 16 states, no initial state, no h_last gradient), as
+    training calls it: from the checkpoints its forward pass kept (the
+    forward with checkpoints is timed beside it, for the log).  Held to
+    its plain version, then timed beside it with its bound: bytes (x, dt,
+    dy, B_t, C_t, A read; dx, ddt, dB, dC, dA written; not the
+    checkpoints, which the function does not need) over 3.35 TB/s
+    against 20 float32 operations per (b, t, d, n) (the states
+    recomputed, then the recurrence above) over 67 TFLOP/s; no one
+    PyTorch call computes it, so no library time."""
     import torch
 
     from repro_torch.kernels.mamba_scan import (
-        mamba1_scan_bwd, mamba1_scan_bwd_reference)
+        mamba1_scan, mamba1_scan_bwd, mamba1_scan_bwd_reference)
     cases = _train_cases()
     c = cases.scan_bwd_case(cases.scan_cases.falcon_case(dev, 512,
                                                          with_h0=False), dev)
@@ -2219,8 +2254,10 @@ def time_scan_bwd(dev, launches: int) -> dict:
     N = c["A"].shape[1]
     name = f"B4-bwd_f32_b{B}_t{T}"
 
+    _, _, ckpt = mamba1_scan(*args, with_checkpoints=True)
+
     def kernel():
-        return mamba1_scan_bwd(*args, None, c["dy"], None)
+        return mamba1_scan_bwd(*args, None, c["dy"], None, ckpt)
 
     def plain():
         return mamba1_scan_bwd_reference(*args, None, c["dy"], None)
@@ -2239,11 +2276,13 @@ def time_scan_bwd(dev, launches: int) -> dict:
     bound_ms = max(t_bytes, t_ops)
     bound_by = "bytes" if t_bytes >= t_ops else "operations"
     dev_ms = _device_ms_per_call(kernel)
+    fwd_ms = cuda_ms(lambda: mamba1_scan(*args, with_checkpoints=True))
     log(f"{name}: Di={Di} N={N}: max abs err {err:.3g}, kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; "
         f"{nbytes} B, {flops} flop), achieved "
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time per call "
-        f"(profiler): kernel {dev_ms}")
+        f"(profiler): kernel {dev_ms}; the forward with checkpoints "
+        f"{fwd_ms:.4f} ms")
     return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/mamba_scan_bwd.cu",
             "replaces": "src/repro/kernels/mamba_scan.py:48",
@@ -2268,7 +2307,7 @@ def training(dev) -> list:
     n = layer_calls(TRAIN_ARCH, "attn")
     qwen = train_in_process(dev, TRAIN_ARCH, {
         "flash_fwd": (flash_attention_bhsd, n),
-        "flash_bwd": (flash_attention_bwd, n)})
+        "flash_bwd": (flash_attention_bwd, n)}, bwd_routes={"wgmma": n})
     falcon = train_in_process(dev, "falcon-mamba-7b", {
         "scan_fwd": (mamba1_scan, 8), "scan_bwd": (mamba1_scan_bwd, 8)},
         n_layers=8)

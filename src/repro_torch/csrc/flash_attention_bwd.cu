@@ -1,5 +1,9 @@
-// The backward pass of flash attention (B3) on Hopper (sm_90a), fp32 and
-// bf16 at head dims 16 to 256.
+// The backward pass of flash attention (B3) on Hopper (sm_90a) on the CUDA
+// cores (the backward's `simt` route): float32 at head dims 16 to 256, and
+// bf16 at 16, 32 and 256.  bf16 at 64 and 128, every model's training call
+// but gemma3's D 256, runs on the tensor cores in
+// flash_attention_bwd_wgmma.cu; kernels/flash_attention.py routes between
+// the two (`bwd_route`).
 //
 // The port's own kernel: the JAX package has no backward Pallas kernel (it
 // differentiates its jnp attention, src/repro/models/attention.py), and the
@@ -18,17 +22,18 @@
 // kpos > qpos - w); kv tiles that every row of a tile masks are skipped by
 // the forward pass's rule, which is exact (their P is 0).
 //
-// Bound: 7 products of 2 * D operations per kept (query, key) pair (the
-// forward's two, again Q K^T and dO V^T for dK/dV, and the four of the
-// gradients), 3.5x the forward's operations; at qwen2-0.5b's heads at
-// 8 x 512, causal, about 13 GFLOP a layer, 0.013 ms at the bf16
-// tensor-core rate, far above the bytes (Q, K, V, O, dO read, dQ, dK, dV
-// written: about 5 MB, 0.0015 ms).
+// Bound (chip_smoke.time_flash_bwd): the bytes of q, k, v, O, dO and lse
+// read and dq, dk, dv written, against 10 D operations per kept (query,
+// key) pair, the five products Q K^T, dO V^T, P^T dO, dS K and dS^T Q.  At
+// qwen2-0.5b's training call in bf16 (8 x 512, 14/2 heads, D 64, causal)
+// that is 34 MB, 0.0101 ms at 3.35 TB/s, against 0.0095 ms of operations at
+// the 989 TFLOP/s bf16 rate; on the CUDA cores, whose fp32 rate is 67
+// TFLOP/s, the same operations take 0.14 ms.
 //
 // Design (simple first, right before fast): fp32 FMAs on the CUDA cores,
-// no tensor cores, with attention_tile.cuh's staging and 128-thread
-// layout (16 row groups by 8 column groups).  Two kernels, so that no
-// result is summed with atomics and two calls are bitwise equal:
+// with attention_tile.cuh's staging and 128-thread layout (16 row groups
+// by 8 column groups).  Two kernels, so that no result is summed with
+// atomics and two calls are bitwise equal:
 //
 // * dQ: one block per (sequence * query head, BQ query rows).  It stages
 //   its Q and dO rows as fp32, computes delta for its rows from dO and O
@@ -42,6 +47,14 @@
 //   registers, P^T and dS^T through shared memory, dV += P^T dO and
 //   dK += dS^T Q into registers.  GQA's sum over the group happens inside
 //   the block, in head order.
+//
+// What holds it back (PERF.md: it ran at 1.0% of its bound in bf16 at
+// qwen2-0.5b's call on an H100): no tensor cores, P and dS through shared
+// memory, every tile staged behind two barriers with no copy in flight,
+// and a GQA group walked by one block; the fp32 dQ kernel spills 52 bytes
+// at D 256.  The tensor-core route answers the first three for bf16 at D
+// 64 and 128; here it stays the float32 path and the small and large head
+// dims.
 //
 // Layout: every tensor is [B, heads, S, D] with element strides given by
 // the caller, the last one 1 and the others whole 16-byte rows (the

@@ -52,6 +52,10 @@
 //   as 16-byte vectors.
 // * Exponentials: exp(dt * A) = 2^(dt * A log2 e), with A scaled once per
 //   lane and one ex2.approx per state and step.
+// * Checkpoints for the backward pass (mamba_scan_bwd.cu), when the caller
+//   passes `ckpt`: each lane stores its 8 states at the start of every
+//   tile, [B, ceil(T / 16), Di, N] float32 (a separate instantiation, so a
+//   call without them runs the kernel it ran before).
 //
 // Layout: x, dt, y [B, T, Di] contiguous; B_t, C_t [B, T, N] with element
 // strides (sb, st) given and a unit last stride (the model passes slices of
@@ -64,21 +68,18 @@
 // C interface (bound with ctypes): ms_launch returns the cudaError_t of
 // the launch, 0 on success.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_tile.cuh"
 
 namespace {
 
-constexpr int kTT = 16;                 // steps per tile
-constexpr int kStages = 2;              // tiles in the ring
-constexpr float kLog2e = 1.4426950408889634f;
+using namespace scan;
 
-// States per lane, threads per block, blocks per SM (which caps the
-// registers: 168 a thread at 3) for N <= 16, and groups of L steps
-// unrolled together (8 steps at N 16).  A design sweep on the H100 chose
-// these: four blocks per SM (128 registers) spilled, four states a lane
-// ran slower, a deeper ring changed nothing.
-constexpr int kStates = 8, kThreads = 128, kBlocksPerSM = 3, kGroups = 4;
+// Blocks per SM (which caps the registers: 168 a thread at 3) for N <= 16,
+// and groups of L steps unrolled together (8 steps at N 16).  A design
+// sweep on the H100 chose these and scan_tile.cuh's states per lane,
+// threads and ring: four blocks per SM (128 registers) spilled, four
+// states a lane ran slower, a deeper ring changed nothing.
+constexpr int kBlocksPerSM = 3, kGroups = 4;
 
 template <int N>
 struct Cfg {
@@ -107,39 +108,11 @@ struct ScanArgs {
   const float* h0;
   float* y;
   float* h_last;
+  float* ckpt;        // [B, n_tiles, Di, N] states at tile starts, or null
   int T, Di;
   int64_t bt_sb, bt_st, ct_sb, ct_st;
   int vec;            // x, dt, B_t, C_t rows allow 16-byte copies
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// `bytes` of `src` -> shared memory, the rest of the `size` bytes zeroed
-template <int SIZE>
-__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
-                                         int bytes) {
-  if constexpr (SIZE == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(bytes) : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-                 "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int K>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(K) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(x));
-  return r;
-}
 
 // v[i] is this lane's part of y for step i of a group of L steps; returns
 // the whole y of step j = lane % L (L - 1 shuffles).
@@ -158,8 +131,9 @@ __device__ __forceinline__ float reduce_scatter(float (&v)[L], int j) {
   return v[0];
 }
 
-// N 32 and 64 (test sizes) may take more registers: no spills.
-template <int N>
+// N 32 and 64 (test sizes) may take more registers: no spills.  CKPT:
+// write the state at the start of every tile to p.ckpt.
+template <int N, bool CKPT>
 __global__ void __launch_bounds__(kThreads,
                                   N <= 16 ? kBlocksPerSM : 2)
 mamba1_scan_kernel(const ScanArgs p) {
@@ -252,6 +226,17 @@ mamba1_scan_kernel(const ScanArgs p) {
   }
 
   for (int k = 0; k < n_tiles; ++k) {
+    if constexpr (CKPT) {
+      if (live) {
+        float4* out = reinterpret_cast<float4*>(
+            p.ckpt +
+            ((static_cast<int64_t>(b) * n_tiles + k) * p.Di + d) * N + j * S);
+#pragma unroll
+        for (int i = 0; i < S / 4; ++i)
+          out[i] = make_float4(h[4 * i], h[4 * i + 1], h[4 * i + 2],
+                               h[4 * i + 3]);
+      }
+    }
     cp_async_wait<kStages - 2>();
     __syncthreads();              // tile k in place; tile k - 1 used up
     if (k + kStages - 1 < n_tiles) issue(k + kStages - 1);
@@ -339,7 +324,7 @@ bool aligned16(const void* ptr) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0;
 }
 
-template <int N>
+template <int N, bool CKPT>
 int launch(ScanArgs p, int B, cudaStream_t stream) {
   using C = Cfg<N>;
   p.vec = p.Di % 4 == 0 && aligned16(p.x) && aligned16(p.dt) &&
@@ -348,39 +333,49 @@ int launch(ScanArgs p, int B, cudaStream_t stream) {
   static bool attr_set = false;       // once per instantiation
   if (!attr_set) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mamba1_scan_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        mamba1_scan_kernel<N, CKPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         C::SMEM);
     if (err != cudaSuccess) return static_cast<int>(err);
     attr_set = true;
   }
   const dim3 grid((p.Di + C::CH - 1) / C::CH, B);
-  mamba1_scan_kernel<N><<<grid, kThreads, C::SMEM, stream>>>(p);
+  mamba1_scan_kernel<N, CKPT><<<grid, kThreads, C::SMEM, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool CKPT>
+int dispatch(const ScanArgs& p, int B, int N, cudaStream_t s) {
+  switch (N) {
+    case 8: return launch<8, CKPT>(p, B, s);
+    case 16: return launch<16, CKPT>(p, B, s);
+    case 32: return launch<32, CKPT>(p, B, s);
+    case 64: return launch<64, CKPT>(p, B, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 extern "C" {
 
-// N (d_state) in {8, 16, 32, 64}; h0 may be null; strides in elements.
+// N (d_state) in {8, 16, 32, 64}; h0 and ckpt may be null; strides in
+// elements.
 int ms_launch(const void* x, const void* dt, const void* bt, const void* ct,
-              const void* a, const void* h0, void* y, void* h_last, int B,
-              int T, int Di, int N, int64_t bt_sb, int64_t bt_st,
-              int64_t ct_sb, int64_t ct_st, void* stream) {
+              const void* a, const void* h0, void* y, void* h_last,
+              void* ckpt, int B, int T, int Di, int N, int64_t bt_sb,
+              int64_t bt_st, int64_t ct_sb, int64_t ct_st, void* stream) {
   const ScanArgs p{
       static_cast<const float*>(x),  static_cast<const float*>(dt),
       static_cast<const float*>(bt), static_cast<const float*>(ct),
       static_cast<const float*>(a),  static_cast<const float*>(h0),
       static_cast<float*>(y),        static_cast<float*>(h_last),
-      T, Di, bt_sb, bt_st, ct_sb, ct_st, 0};
+      static_cast<float*>(ckpt),     T, Di, bt_sb, bt_st, ct_sb, ct_st, 0};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (N) {
-    case 8: return launch<8>(p, B, s);
-    case 16: return launch<16>(p, B, s);
-    case 32: return launch<32>(p, B, s);
-    case 64: return launch<64>(p, B, s);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return ckpt ? dispatch<true>(p, B, N, s) : dispatch<false>(p, B, N, s);
 }
+
+// steps between the checkpoints ms_launch writes (the caller sizes them)
+int ms_ckpt_steps() { return kTT; }
 
 }  // extern "C"

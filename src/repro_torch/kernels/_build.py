@@ -122,15 +122,25 @@ def load_library() -> ctypes.CDLL:
                                ctypes.POINTER(i64), ci, ci, ctypes.c_float,
                                vp]
     lib.fab_launch.restype = ci
+    lib.fab_wgmma_launch.argtypes = [*[vp] * 10, ci, ci, ci, ci, ci,
+                                     ctypes.POINTER(i64), ci, ci,
+                                     ctypes.c_float, ctypes.c_float, vp]
+    lib.fab_wgmma_launch.restype = ci
+    lib.fab_wgmma_rows.argtypes = [ci]
+    lib.fab_wgmma_rows.restype = ci
     lib.da_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
                               ci, ci, ci, *[i64] * 10, ci, ctypes.c_float, vp]
     lib.da_launch.restype = ci
     lib.da_tile_slots.argtypes = [ci, ci]
     lib.da_tile_slots.restype = ci
-    lib.ms_launch.argtypes = [*[vp] * 8, ci, ci, ci, ci, *[i64] * 4, vp]
+    lib.ms_launch.argtypes = [*[vp] * 9, ci, ci, ci, ci, *[i64] * 4, vp]
     lib.ms_launch.restype = ci
-    lib.msb_launch.argtypes = [*[vp] * 16, ci, ci, ci, ci, vp]
+    lib.ms_ckpt_steps.argtypes = []
+    lib.ms_ckpt_steps.restype = ci
+    lib.msb_launch.argtypes = [*[vp] * 15, ci, ci, ci, ci, vp]
     lib.msb_launch.restype = ci
+    lib.msb_blocks.argtypes = [ci, ci]
+    lib.msb_blocks.restype = ci
     return lib
 
 

@@ -41,10 +41,12 @@ jnp attention.  The port's models call B3 on the training path, so
 ``FlashAttentionFn`` gives it one.  Its forward pass asks the kernel for
 each row's float32 log-sum-exp as well (``with_lse``; inference calls do
 not), and its backward pass is ``flash_attention_bwd``: on the card the
-port's own hand-written kernels in ``csrc/flash_attention_bwd.cu`` (dQ,
-then dK and dV, no atomics), counted in ``flash_attention_bwd.launches``;
-on the CPU ``flash_attention_bwd_reference``, their formulas in plain
-PyTorch.
+port's own hand-written kernels (dQ, then dK and dV, no atomics), chosen
+by ``bwd_route`` as the forward's by ``route``: bfloat16 at ``D`` 64 and
+128 on the tensor cores (``csrc/flash_attention_bwd_wgmma.cu``), the rest
+on CUDA cores (``csrc/flash_attention_bwd.cu``), counted in
+``flash_attention_bwd.launches`` and ``launches_by_route``; on the CPU
+``flash_attention_bwd_reference``, their formulas in plain PyTorch.
 """
 from __future__ import annotations
 
@@ -58,6 +60,9 @@ NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 WGMMA_HEAD_DIMS = (64, 128, 256)    # bf16 head dims of the tensor-core kernel
+# bf16 head dims of the tensor-core backward: at 256 its dK and dV
+# accumulators (256 fp32 a thread) do not fit the registers
+WGMMA_BWD_HEAD_DIMS = (64, 128)
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
@@ -65,6 +70,14 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     the head dims of ``WGMMA_HEAD_DIMS``, else ``"simt"``."""
     return ("wgmma" if dtype == torch.bfloat16
             and head_dim in WGMMA_HEAD_DIMS else "simt")
+
+
+def bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """Which kernels take a backward call on the card: ``"wgmma"`` for
+    bfloat16 at the head dims of ``WGMMA_BWD_HEAD_DIMS``, else
+    ``"simt"``."""
+    return ("wgmma" if dtype == torch.bfloat16
+            and head_dim in WGMMA_BWD_HEAD_DIMS else "simt")
 
 
 def _masked_scores(q, k, causal: bool, window: Optional[int]):
@@ -264,8 +277,11 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     tensors laid out [B, S, ., D], as the model's activations are).
 
     CPU tensors take ``flash_attention_bwd_reference``; CUDA tensors launch
-    the two kernels of ``csrc/flash_attention_bwd.cu`` (dQ, then dK and
-    dV) and add one to ``flash_attention_bwd.launches``."""
+    the two kernels (dQ, then dK and dV) of ``bwd_route(q.dtype, D)``:
+    ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores, or
+    ``csrc/flash_attention_bwd.cu`` on the CUDA cores; each call adds one
+    to ``flash_attention_bwd.launches`` and to that route's count in
+    ``launches_by_route``."""
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
                                              window)
@@ -290,28 +306,46 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     B, H, S, D = q4.shape
     KV = k4.shape[1]
     lse = lse.contiguous()
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     dq4, dk4, dv4 = (_empty_like_input(t) for t in (q, k, v))
+    # a dimension of size 1 takes the stride D: any stride is right for
+    # it, and the tensor maps want whole 16-byte rows
     strides = (ctypes.c_int64 * 24)(*(
-        s for t in (q4, k4, v4, o4, do4, dq4, dk4, dv4)
-        for s in t.stride()[:3]))
+        s if n > 1 else D for t in (q4, k4, v4, o4, do4, dq4, dk4, dv4)
+        for s, n in zip(t.stride()[:3], t.shape[:3])))
+    which = bwd_route(q.dtype, D)
+    ptrs = (q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), o4.data_ptr(),
+            do4.data_ptr(), lse.data_ptr())
+    grads = (dq4.data_ptr(), dk4.data_ptr(), dv4.data_ptr())
+    rest = (B, H, KV, S, D, strides, int(causal),
+            -1 if window is None else int(window))
     with torch.cuda.device(q.device):
-        err = lib.fab_launch(
-            DTYPES[q.dtype], q4.data_ptr(), k4.data_ptr(), v4.data_ptr(),
-            o4.data_ptr(), do4.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-            dq4.data_ptr(), dk4.data_ptr(), dv4.data_ptr(), B, H, KV, S, D,
-            strides, int(causal), -1 if window is None else int(window),
-            ctypes.c_float(1.0 / D ** 0.5),
-            torch.cuda.current_stream(q.device).cuda_stream)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if which == "wgmma":
+            # each row's lse * log2(e) and delta, rows padded to a tile
+            stats = torch.empty((B * H, 2, lib.fab_wgmma_rows(S)),
+                                dtype=torch.float32, device=q.device)
+            err = lib.fab_wgmma_launch(
+                *ptrs, stats.data_ptr(), *grads, *rest,
+                ctypes.c_float(math.log2(math.e) / D ** 0.5),
+                ctypes.c_float(1.0 / D ** 0.5), stream)
+        else:
+            delta = torch.empty((B, H, S), dtype=torch.float32,
+                                device=q.device)
+            err = lib.fab_launch(DTYPES[q.dtype], *ptrs, delta.data_ptr(),
+                                 *grads, *rest,
+                                 ctypes.c_float(1.0 / D ** 0.5), stream)
     if err:
-        raise RuntimeError(f"flash_attention_bwd launch failed: error {err}")
+        raise RuntimeError(f"flash_attention_bwd {which} launch failed: "
+                           f"error {err}")
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_route[which] += 1
     if q.dim() == 3:
         return dq4[0], dk4[0], dv4[0]
     return dq4, dk4, dv4
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
 class FlashAttentionFn(torch.autograd.Function):

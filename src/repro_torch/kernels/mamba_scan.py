@@ -28,8 +28,12 @@ and the twin of ``repro.kernels.ref.mamba1_scan_ref``.  The TPU kernel's
 
 Gradient.  The JAX package has no backward kernel: it differentiates its
 chunked associative scan.  The port's Mamba-1 layers call B4 on the
-training path, so ``MambaScanFn`` gives it one: its backward pass is
-``mamba1_scan_bwd``, on the card the port's own hand-written kernels in
+training path, so ``MambaScanFn`` gives it one.  Its forward pass asks
+``mamba1_scan`` for checkpoints as well (``with_checkpoints``: the state
+at the start of every ``CKPT_STEPS`` steps, [B, ceil(T / 16), Di, N]
+float32; inference does not ask, and the kernel then writes none), and
+its backward pass is ``mamba1_scan_bwd``, which recomputes each chunk's
+states from them: on the card the port's own hand-written kernels in
 ``csrc/mamba_scan_bwd.cu`` (counted in ``mamba1_scan_bwd.launches``), on
 the CPU ``mamba1_scan_bwd_reference``, the same recurrence in plain
 PyTorch.  With ``g_t`` the gradient reaching ``h_t`` and
@@ -44,28 +48,42 @@ PyTorch.  With ``g_t`` the gradient reaching ``h_t`` and
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 STATE_SIZES = (8, 16, 32, 64)       # d_state values the kernel is built for
-# the backward kernel's threads per block and steps per recomputed chunk
-# (csrc/mamba_scan_bwd.cu: kThreads, kChunk), which size its scratch
-SCAN_BWD_THREADS, SCAN_BWD_CHUNK = 128, 16
+# steps between checkpoints: the kernels' tile (csrc/scan_tile.cuh: kTT),
+# which the library reports and ``_library`` holds to this
+CKPT_STEPS = 16
 
 
-def mamba1_scan_reference(x, dt, Bt, Ct, A, h0=None):
+def n_checkpoints(T: int) -> int:
+    """Checkpoints of a T-step scan: one at the start of every
+    ``CKPT_STEPS`` steps."""
+    return -(-T // CKPT_STEPS)
+
+
+def mamba1_scan_reference(x, dt, Bt, Ct, A, h0=None,
+                          with_checkpoints: bool = False):
     """Plain PyTorch, term for term ``repro.kernels.ref.mamba1_scan_ref``,
     plus the initial and final state: x, dt [B, T, Di]; Bt, Ct [B, T, N];
     A [Di, N]; h0 [B, Di, N] or None (zeros).  Returns (y [B, T, Di],
-    h_last [B, Di, N]), float32."""
+    h_last [B, Di, N]), float32; with ``with_checkpoints``, also the state
+    before steps 0, 16, 32, ... ([B, n_checkpoints(T), Di, N])."""
     B, T, Di = x.shape
     N = Bt.shape[-1]
     h = (torch.zeros((B, Di, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
-    ys = []
+    ys, ckpt = [], []
     for t in range(T):
+        if t % CKPT_STEPS == 0:
+            ckpt.append(h)
         da = torch.exp(dt[:, t, :, None] * A[None])              # [B, Di, N]
         h = h * da + (dt[:, t] * x[:, t])[:, :, None] * Bt[:, t, None, :]
         ys.append(torch.einsum("bdn,bn->bd", h, Ct[:, t]))
+    if with_checkpoints:
+        return torch.stack(ys, 1), h, torch.stack(ckpt, 1)
     return torch.stack(ys, 1), h
 
 
@@ -78,11 +96,12 @@ def mamba1_scan_bwd_reference(x, dt, Bt, Ct, A, h0, dy, dh_last):
     N = Bt.shape[-1]
     h = (torch.zeros((B, Di, N), dtype=torch.float32, device=x.device)
          if h0 is None else h0)
-    hs, das = [h], []
+    before, after, das = [], [], []          # h_{t-1}, h_t, a_t per step
     for t in range(T):
+        before.append(h)
         da = torch.exp(dt[:, t, :, None] * A[None])
         h = h * da + (dt[:, t] * x[:, t])[:, :, None] * Bt[:, t, None, :]
-        hs.append(h)
+        after.append(h)
         das.append(da)
     g = (torch.zeros_like(h) if dh_last is None
          else dh_last.float().clone())
@@ -91,8 +110,8 @@ def mamba1_scan_bwd_reference(x, dt, Bt, Ct, A, h0, dy, dh_last):
     dA = torch.zeros_like(A)
     for t in reversed(range(T)):
         g = g + Ct[:, t, None, :] * dy[:, t, :, None]
-        h_prev, da = hs[t], das[t]
-        dC[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], hs[t + 1])
+        h_prev, da = before[t], das[t]
+        dC[:, t] = torch.einsum("bd,bdn->bn", dy[:, t], after[t])
         dB[:, t] = torch.einsum("bdn,bd->bn", g, dt[:, t] * x[:, t])
         s1 = torch.einsum("bdn,bn->bd", g, Bt[:, t])
         gah = g * da * h_prev
@@ -135,6 +154,19 @@ def _check(x, dt, Bt, Ct, A, h0, h_out=None) -> None:
 _CHECKED: dict = {}         # signature -> Bt's and Ct's (batch, time) strides
 
 
+@functools.cache
+def _library():
+    """The kernels' library, once its checkpoint interval is known to be
+    ``CKPT_STEPS``, by which the wrappers size the checkpoints."""
+    from repro_torch.kernels._build import load_library
+    lib = load_library()
+    if lib.ms_ckpt_steps() != CKPT_STEPS:
+        raise RuntimeError(f"the scan kernels checkpoint every "
+                           f"{lib.ms_ckpt_steps()} steps, the wrappers "
+                           f"every {CKPT_STEPS}")
+    return lib
+
+
 def _checked(x, dt, Bt, Ct, A, h0, h_out) -> tuple:
     """``_check`` once per call signature (``_build.checked_once``).
     Returns the element strides (batch, time) of Bt and Ct."""
@@ -146,11 +178,14 @@ def _checked(x, dt, Bt, Ct, A, h0, h_out) -> tuple:
     return checked_once(_CHECKED, check, x, dt, Bt, Ct, A, h0, h_out)
 
 
-def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None):
+def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None, *,
+                with_checkpoints: bool = False):
     """x, dt: [B, T, Di]; Bt, Ct: [B, T, N]; A: [Di, N]; h0: [B, Di, N] or
     None; all float32.  Returns (y [B, T, Di], h_last [B, Di, N]);
     ``h_last`` is ``h_out`` when one is given (contiguous [B, Di, N]; it
-    may be ``h0``), else a new tensor.
+    may be ``h0``), else a new tensor.  With ``with_checkpoints``, also
+    the state before steps 0, 16, 32, ... ([B, n_checkpoints(T), Di, N]
+    float32), which the backward pass reads.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel and
     add one to ``mamba1_scan.launches``.  B_t and C_t may be strided slices
@@ -159,15 +194,16 @@ def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None):
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
-        y, h = mamba1_scan_reference(x, dt, Bt, Ct, A, h0)
-        return y, (h if h_out is None else h_out.copy_(h))
+        y, h, *ckpt = mamba1_scan_reference(x, dt, Bt, Ct, A, h0,
+                                            with_checkpoints)
+        return (y, h if h_out is None else h_out.copy_(h), *ckpt)
     if Bt.stride(-1) != 1:
         Bt = Bt.contiguous()
     if Ct.stride(-1) != 1:
         Ct = Ct.contiguous()
     strides = _checked(x, dt, Bt, Ct, A, h0, h_out)
-    from repro_torch.kernels._build import launch, load_library
-    lib = load_library()
+    from repro_torch.kernels._build import launch
+    lib = _library()
     x, dt, A = x.contiguous(), dt.contiguous(), A.contiguous()
     h0 = None if h0 is None else h0.contiguous()
     B, T, Di = x.shape
@@ -181,25 +217,31 @@ def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None):
                          "rows as 16-byte vectors: their data must be "
                          "16-byte aligned")
     y = torch.empty_like(x)
+    ckpt = (torch.empty((B, n_checkpoints(T), Di, N), dtype=torch.float32,
+                        device=x.device) if with_checkpoints else None)
     err = launch(x.get_device(), lib.ms_launch, x.data_ptr(), dt.data_ptr(),
                  Bt.data_ptr(), Ct.data_ptr(), p_a, p_h0 or None,
-                 y.data_ptr(), p_h, B, T, Di, N, *strides)
+                 y.data_ptr(), p_h, None if ckpt is None else ckpt.data_ptr(),
+                 B, T, Di, N, *strides)
     if err:
         raise RuntimeError(f"mamba1_scan launch failed: cudaError {err}")
     mamba1_scan.launches += 1
-    return y, h_last
+    return (y, h_last) if ckpt is None else (y, h_last, ckpt)
 
 
 mamba1_scan.launches = 0
 
 
-def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last):
+def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last, ckpt=None):
     """The backward pass of ``mamba1_scan``: its inputs (``h0`` may be
     None), ``dy`` [B, T, Di] and ``dh_last`` [B, Di, N] (None: zeros), all
-    float32.  Returns (dx, ddt, dB, dC, dA, dh0) as
+    float32, and ``ckpt``, the checkpoints its forward pass wrote with
+    ``with_checkpoints`` (None: on the card this call runs the forward
+    kernel for them).  Returns (dx, ddt, dB, dC, dA, dh0) as
     ``mamba1_scan_bwd_reference`` does.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernels of
+    CPU tensors take the plain version, which recomputes every state from
+    ``h0`` and does not read ``ckpt``; CUDA tensors launch the kernels of
     ``csrc/mamba_scan_bwd.cu`` (the scan backward, then the fixed-order
     sums of its per-block partials) and add one to
     ``mamba1_scan_bwd.launches``."""
@@ -215,27 +257,32 @@ def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last):
             or dy.device != x.device:
         raise ValueError(f"want dy {tuple(x.shape)} float32 on {x.device}, "
                          f"got {tuple(dy.shape)} {dy.dtype} {dy.device}")
-    from repro_torch.kernels._build import launch, load_library
-    lib = load_library()
     B, T, Di = x.shape
     N = A.shape[1]
+    if ckpt is None:
+        ckpt = mamba1_scan(x, dt, Bt, Ct, A, h0, with_checkpoints=True)[2]
+    elif (tuple(ckpt.shape) != (B, n_checkpoints(T), Di, N)
+          or ckpt.dtype != torch.float32 or ckpt.device != x.device
+          or not ckpt.is_contiguous()):
+        raise ValueError(f"want ckpt [{B}, {n_checkpoints(T)}, {Di}, {N}] "
+                         f"float32 contiguous on {x.device}, got "
+                         f"{tuple(ckpt.shape)} {ckpt.dtype} {ckpt.device}")
+    from repro_torch.kernels._build import launch
+    lib = _library()
     f32 = dict(dtype=torch.float32, device=x.device)
-    chunks = -(-T // SCAN_BWD_CHUNK)
-    blocks = -(-Di // (SCAN_BWD_THREADS * 8 // N))    # channel blocks
+    blocks = lib.msb_blocks(Di, N)                    # channel blocks
     dx, ddt = torch.empty_like(x), torch.empty_like(x)
-    ckpt = torch.empty((B, chunks, Di, N), **f32)
     part_bc = torch.empty((blocks, B, T, 2 * N), **f32)
     part_a = torch.empty((B, Di, N), **f32)
     dh0 = torch.empty((B, Di, N), **f32)
     dbc = torch.empty((B, T, 2 * N), **f32)
     dA = torch.empty((Di, N), **f32)
-    ptrs = [t.data_ptr() for t in (x, dt, Bt, Ct, A, dy)]
+    ptrs = [t.data_ptr() for t in (x, dt, Bt, Ct, A, dy, ckpt)]
     err = launch(x.get_device(), lib.msb_launch, *ptrs,
-                 None if h0 is None else h0.data_ptr(),
                  None if dh_last is None else dh_last.data_ptr(),
-                 dx.data_ptr(), ddt.data_ptr(), ckpt.data_ptr(),
-                 part_bc.data_ptr(), part_a.data_ptr(), dh0.data_ptr(),
-                 dbc.data_ptr(), dA.data_ptr(), B, T, Di, N)
+                 dx.data_ptr(), ddt.data_ptr(), part_bc.data_ptr(),
+                 part_a.data_ptr(), dh0.data_ptr(), dbc.data_ptr(),
+                 dA.data_ptr(), B, T, Di, N)
     if err:
         raise RuntimeError(f"mamba1_scan_bwd launch failed: cudaError {err}")
     mamba1_scan_bwd.launches += 1
@@ -247,15 +294,16 @@ mamba1_scan_bwd.launches = 0
 
 class MambaScanFn(torch.autograd.Function):
     """B4 with a gradient: the forward pass is ``mamba1_scan`` (no
-    ``h_out``), the backward pass ``mamba1_scan_bwd``, both by the
-    tensors' device.  The inputs are kept; the states are recomputed in
-    the backward pass.  Returns (y, h_last); ``h0`` gets a gradient when
-    it is given."""
+    ``h_out``) with checkpoints, the backward pass ``mamba1_scan_bwd`` from
+    them, both by the tensors' device.  The inputs and the checkpoints are
+    kept; each chunk's states are recomputed in the backward pass.  Returns
+    (y, h_last); ``h0`` gets a gradient when it is given."""
 
     @staticmethod
     def forward(ctx, x, dt, Bt, Ct, A, h0):
-        y, h_last = mamba1_scan(x, dt, Bt, Ct, A, h0)
-        ctx.save_for_backward(x, dt, Bt, Ct, A, h0)
+        y, h_last, ckpt = mamba1_scan(x, dt, Bt, Ct, A, h0,
+                                      with_checkpoints=True)
+        ctx.save_for_backward(x, dt, Bt, Ct, A, h0, ckpt)
         # an output nobody used gets None, not a tensor of zeros: training
         # never reads h_last, and the kernel then skips its gradient
         ctx.set_materialize_grads(False)
@@ -263,9 +311,9 @@ class MambaScanFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy, dh_last):
-        x, dt, Bt, Ct, A, h0 = ctx.saved_tensors
+        x, dt, Bt, Ct, A, h0, ckpt = ctx.saved_tensors
         if dy is None:
             dy = torch.zeros_like(x)
         dx, ddt, dB, dC, dA, dh0 = mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy,
-                                                   dh_last)
+                                                   dh_last, ckpt)
         return dx, ddt, dB, dC, dA, (None if h0 is None else dh0)

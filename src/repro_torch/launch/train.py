@@ -92,11 +92,13 @@ def modality_extras(cfg: ModelConfig, batch: int, seq: int, device) -> dict:
 
 
 def kernel_launches() -> dict:
-    """This process's launches of B3 and B4, forward and backward."""
+    """This process's launches of B3 and B4, forward and backward, and of
+    B3's backward on its tensor-core route."""
     return {"flash_fwd": flash_attention_bhsd.launches,
             "flash_bwd": flash_attention_bwd.launches,
             "scan_fwd": mamba1_scan.launches,
-            "scan_bwd": mamba1_scan_bwd.launches}
+            "scan_bwd": mamba1_scan_bwd.launches,
+            "flash_bwd_wgmma": flash_attention_bwd.launches_by_route["wgmma"]}
 
 
 def main(argv=None) -> None:

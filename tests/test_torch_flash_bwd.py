@@ -11,7 +11,9 @@ tests/test_torch_attention_cuda.py's ``flash_cases``), with the forward's
 output and log-sum-exp from the plain version.  The log-sum-exp itself is
 held to float64 numpy.  Tolerance atol = rtol = 1e-4: float32 sums in
 another order (``BWD_TOL``).  On the CPU ``FlashAttentionFn`` runs the
-plain versions forward and backward, so it is exercised here too:
+plain versions forward and backward, so it is exercised here too.
+``bwd_route``, which picks the backward kernels on the card, is checked
+for every dtype and head dim, and no CPU call counts a launch:
 through ``ops.flash_attention`` with the model's [B, S, H, D] views, its
 gradients must equal autograd's of the plain forward within float32
 rounding and come back in the views' shapes.
@@ -27,7 +29,10 @@ import torch
 from repro.kernels import ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import (
+    DTYPES,
+    HEAD_DIMS,
     FlashAttentionFn,
+    bwd_route,
     flash_attention_bhsd,
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -127,3 +132,24 @@ def test_no_function_without_a_gradient():
         assert ops.flash_attention(q, c["k"], c["v"]).grad_fn is None
     assert FlashAttentionFn.apply(q, c["k"], c["v"], True, None).grad_fn \
         is not None
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES, key=str))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_bwd_route(dtype, D):
+    """bf16 at D 64 and 128 on the tensor cores, the rest on the CUDA
+    cores: D 256's dK and dV accumulators do not fit a thread's
+    registers."""
+    want = "wgmma" if dtype == torch.bfloat16 and D in (64, 128) else "simt"
+    assert bwd_route(dtype, D) == want
+
+
+def test_cpu_backward_counts_no_launch():
+    c = model_flash("cpu", torch.float32, B=1, S=8, H=4, KV=2)
+    o, lse = flash_attention_bhsd(c["q"], c["k"], c["v"], with_lse=True)
+    before = (flash_attention_bwd.launches,
+              dict(flash_attention_bwd.launches_by_route))
+    flash_attention_bwd(c["q"], c["k"], c["v"], o, lse, torch.ones_like(o))
+    assert before == (flash_attention_bwd.launches,
+                      flash_attention_bwd.launches_by_route)
+    assert sorted(before[1]) == ["simt", "wgmma"]

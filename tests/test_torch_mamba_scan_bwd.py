@@ -15,7 +15,10 @@ tests/test_kernels.py's for this kernel), the atol scaled by each
 gradient's largest magnitude: dB, dC and dA are sums over channels or
 steps.  ``MambaScanFn`` runs the plain versions forward and backward on
 the CPU; ``ops.mamba_scan`` takes it when a gradient is required and then
-refuses an ``h_out``.
+refuses an ``h_out``.  The checkpoints the forward pass keeps for the
+backward pass (``with_checkpoints``, the state before steps 0, 16, 32, ...)
+are held to a step-by-step numpy recurrence in float64 at ``TOL``, and
+``MambaScanFn`` is shown to keep them for its backward pass.
 """
 from __future__ import annotations
 
@@ -28,10 +31,13 @@ import torch
 from repro.kernels import ref
 from repro_torch.kernels import ops
 from repro_torch.kernels.mamba_scan import (
+    CKPT_STEPS,
     MambaScanFn,
+    mamba1_scan,
     mamba1_scan_bwd,
     mamba1_scan_bwd_reference,
     mamba1_scan_reference,
+    n_checkpoints,
 )
 from test_torch_mamba_scan_cuda import SHAPES, TOL, scan_case, shape_id
 
@@ -109,3 +115,64 @@ def test_function_returns_h0s_gradient_and_refuses_h_out():
         out = torch.empty_like(t["h0"])
         assert ops.mamba_scan(*(t[n] for n in NAMES), t["h0"],
                               h_out=out)[1] is out
+
+
+def _numpy_checkpoints(c) -> np.ndarray:
+    """The state before steps 0, 16, 32, ..., step by step in float64."""
+    x, dt, Bt, A = (c[n].astype(np.float64) for n in ("x", "dt", "Bt", "A"))
+    B, T, Di = x.shape
+    h = (np.zeros((B, Di, A.shape[1])) if c["h0"] is None
+         else c["h0"].astype(np.float64))
+    out = []
+    for t in range(T):
+        if t % CKPT_STEPS == 0:
+            out.append(h)
+        h = (np.exp(dt[:, t, :, None] * A[None]) * h
+             + (dt[:, t] * x[:, t])[:, :, None] * Bt[:, t, None, :])
+    return np.stack(out, 1)
+
+
+CKPT_SHAPES = [(2, 1, 64, 16, True), (1, 15, 32, 8, False),
+               (2, 17, 48, 32, True), (1, 40, 24, 64, True),
+               (2, 64, 32, 16, False)]
+
+
+@pytest.mark.parametrize("shape", CKPT_SHAPES,
+                         ids=[shape_id(s) for s in CKPT_SHAPES])
+def test_plain_checkpoints_match_a_numpy_recurrence(shape):
+    c = scan_case(*shape)
+    t = {n: None if v is None else torch.from_numpy(v) for n, v in c.items()}
+    args = [t[n] for n in NAMES + ("h0",)]
+    y, h, ckpt = mamba1_scan(*args, with_checkpoints=True)
+    assert ckpt.shape == (shape[0], n_checkpoints(shape[1]), shape[2],
+                          shape[3])
+    assert ckpt.dtype == torch.float32
+    _close(ckpt.numpy(), _numpy_checkpoints(c), "checkpoints")
+    y0, h0 = mamba1_scan(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+
+
+@pytest.mark.parametrize("shape", CKPT_SHAPES,
+                         ids=[shape_id(s) for s in CKPT_SHAPES])
+def test_function_keeps_the_checkpoints_for_its_backward(shape):
+    """``MambaScanFn`` asks its forward pass for checkpoints and hands
+    them to the backward pass: its saved tensors hold them, and its
+    gradients equal autograd's of the plain forward."""
+    c = scan_case(*shape)
+    t = {n: None if v is None else torch.from_numpy(v).requires_grad_()
+         for n, v in c.items()}
+    args = [t[n] for n in NAMES + ("h0",)]
+    y, h = MambaScanFn.apply(*args)
+    saved = y.grad_fn.saved_tensors
+    assert saved[-1].shape == (shape[0], n_checkpoints(shape[1]), shape[2],
+                               shape[3])
+    torch.testing.assert_close(saved[-1], torch.from_numpy(
+        _numpy_checkpoints(c)).float(), rtol=1e-4, atol=1e-4)
+    dy = torch.randn(y.shape, generator=torch.Generator().manual_seed(2))
+    got = torch.autograd.grad(y, [a for a in args if a is not None], dy)
+    args2 = [None if a is None else a.detach().clone().requires_grad_()
+             for a in args]
+    want = torch.autograd.grad(mamba1_scan_reference(*args2)[0],
+                               [a for a in args2 if a is not None], dy)
+    for a, b in zip(got, want):
+        _close(a.numpy(), b.numpy(), "grad")

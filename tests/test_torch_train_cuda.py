@@ -47,6 +47,7 @@ import torch
 from repro_torch.kernels.flash_attention import (
     HEAD_DIMS,
     FlashAttentionFn,
+    bwd_route,
     flash_attention_bhsd,
     flash_attention_bwd,
     flash_attention_bwd_reference,
@@ -54,10 +55,13 @@ from repro_torch.kernels.flash_attention import (
     flash_attention_reference,
 )
 from repro_torch.kernels.mamba_scan import (
+    STATE_SIZES,
     MambaScanFn,
+    mamba1_scan,
     mamba1_scan_bwd,
     mamba1_scan_bwd_reference,
     mamba1_scan_reference,
+    n_checkpoints,
 )
 
 import test_torch_attention_cuda as attn_cases
@@ -306,6 +310,76 @@ def test_flash_bwd_repeats_bitwise(cuda_device):
     again = flash_attention_bwd(c["q"], c["k"], c["v"], o, lse, c["do"])
     for a, b in zip(first, again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("D", HEAD_DIMS)
+def test_flash_bwd_routes(cuda_device, dtype, D):
+    """bf16 at D 64 and 128 takes the tensor-core kernels, every other
+    (dtype, D) the CUDA-core ones; each call counts once on its route."""
+    want = "wgmma" if dtype == "bfloat16" and D in (64, 128) else "simt"
+    assert bwd_route(DTYPES[dtype], D) == want
+    c = flash_bwd_case(cuda_device, DTYPES[dtype], D=D, S=40, mask="causal",
+                       r=7, B=1)
+    o, lse = flash_attention_bhsd(c["q"], c["k"], c["v"], with_lse=True)
+    before = dict(flash_attention_bwd.launches_by_route)
+    flash_attention_bwd(c["q"], c["k"], c["v"], o, lse, c["do"])
+    torch.cuda.synchronize()
+    after = flash_attention_bwd.launches_by_route
+    assert {r: after[r] - before[r] for r in after} == {
+        r: int(r == want) for r in after}
+
+
+# (D, r, S, B): pairs per dK/dV block odd and even, a group of 48 over
+# fewer query tiles than warpgroups, tails of S
+WGMMA_SPLITS = [(64, 7, 512, 2), (64, 48, 100, 1), (128, 7, 200, 3),
+                (128, 48, 17, 2), (64, 1, 1, 1), (128, 2, 64, 1)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D,r,S,B", WGMMA_SPLITS,
+                         ids=[f"D{D}-r{r}-S{S}-B{B}"
+                              for D, r, S, B in WGMMA_SPLITS])
+@pytest.mark.parametrize("mask", sorted(BWD_MASKS))
+def test_flash_bwd_wgmma_splits_the_gqa_group(cuda_device, D, r, S, B,
+                                              mask):
+    """The tensor-core dK/dV kernel shares a kv head's (query head, query
+    tile) pairs among its warpgroups and adds their sums in a fixed order:
+    held to the plain backward at every split, and bitwise equal on two
+    calls."""
+    c = flash_bwd_case(cuda_device, torch.bfloat16, D=D, S=S, mask=mask,
+                       r=r, B=B, KV=1 if r == 48 else 2)
+    before = flash_attention_bwd.launches_by_route["wgmma"]
+    flash_bwd_errors(c, "bfloat16")
+    kw = dict(causal=c["causal"], window=c["window"])
+    o, lse = flash_attention_bhsd(c["q"], c["k"], c["v"], with_lse=True, **kw)
+    first = flash_attention_bwd(c["q"], c["k"], c["v"], o, lse, c["do"], **kw)
+    again = flash_attention_bwd(c["q"], c["k"], c["v"], o, lse, c["do"], **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(a, b)
+    # the kernel backward, FlashAttentionFn's, and the two repeats
+    assert flash_attention_bwd.launches_by_route["wgmma"] == before + 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", STATE_SIZES)
+@pytest.mark.parametrize("T", (1, 15, 17, 40))
+def test_scan_checkpoints_match_the_plain_recurrence(cuda_device, N, T):
+    """The forward kernel's checkpoints (the state before steps 0, 16, ...)
+    against the plain recurrence's, from a state; y and h_last are those
+    of the same call without checkpoints, bit for bit."""
+    c = scan_cases.to_torch(scan_cases.scan_case(2, T, 200, N, True),
+                            cuda_device)
+    args = [c[n] for n in ("x", "dt", "Bt", "Ct", "A", "h0")]
+    y, h, ckpt = mamba1_scan(*args, with_checkpoints=True)
+    _, _, want = mamba1_scan_reference(*args, with_checkpoints=True)
+    assert ckpt.shape == (2, n_checkpoints(T), 200, N)
+    torch.testing.assert_close(ckpt, want, **scan_cases.TOL)
+    assert torch.equal(ckpt[:, 0], c["h0"])
+    y0, h0 = mamba1_scan(*args)
+    assert torch.equal(y, y0) and torch.equal(h, h0)
 
 
 def _scan_param(shape):
