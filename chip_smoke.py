@@ -9,10 +9,13 @@ fails:
 1. card: prints ``nvidia-smi``'s name and power limit;
 2. build: compiles the port's CUDA kernels from ``src/repro_torch/csrc``;
 3. serving: ``python -m repro_torch.launch.serve --backend torch --arch
-   qwen2-0.5b --tp 2`` as a subprocess (fresh worker processes, so their
-   launch counts start at 0), once in fp32 with ``--multi-step 4`` and
-   once with ``--kv-dtype int8``; every request must complete and the
-   workers' summed kernel launches must be above 0;
+   qwen2-0.5b --tp 2 --multi-step 4`` as a subprocess (fresh worker
+   processes, so their launch counts start at 0), once in fp32 and once
+   with ``--kv-dtype int8``; every request must complete, the workers'
+   summed kernel launches (captured steps' replays counted) must be above
+   0, and the fp32 run's k-step plans must have replayed captured graphs
+   while the int8 run, whose pool keeps the per-step loop, replays none;
+   the graphs each run captured and their capture time are logged;
 4. kernel vs plain version: the CUDA kernel against
    ``paged_decode_attention_reference`` on the same inputs on the card, at
    the serving shapes (H 14, KV 2, D 64, block 64, up to 64 rows of up to
@@ -21,9 +24,11 @@ fails:
    page a split, through the private ``_launch``), on the edge cases and
    at 8 and 64 serving rows, seq_len-0 rows and a row whose valid pages
    lie in one split among them;
-5. token identity: ``TorchBackend`` on the card and on the CPU sample the
+5. token identity: ``TorchBackend`` on the card with its k-step loop
+   captured, on the card with the same step run eagerly (``graphs`` set
+   to None), and on the CPU sample the
    same tokens on the conformance workload (k=1, and k=4 under swap
-   churn);
+   churn, where the captured steps must have replayed);
 6. times at the serving shapes, 64 rows and the serve runs' 8 rows of 32
    full pages, fp32 and int8, with CUDA events: the kernel, the plain
    version, ``scaled_dot_product_attention`` over the gathered contiguous
@@ -35,14 +40,21 @@ fails:
 7. the model path at full width: qwen2-0.5b as published (24 layers,
    d_model 896, 14/2 heads, vocab 151,936, bf16), weights from
    ``torch.Generator`` seed 0 on the card; prefill 8 prompts of 512
-   tokens, 32 ``decode_step``s, then the same 32 tokens through
-   ``decode_multi`` from the same cache: the streams must be equal, the
-   logits finite, and the flash (B3) and decode (B2) attention kernels
-   launched at least 24 and 24 x 32 times, B3's 24 prefill launches on
-   its tensor-core (``wgmma``) route; prefill and per-token decode
-   times with CUDA events, then the device's busy share of a prefill and
-   of four decode steps from ``torch.profiler`` (kernel time over wall
-   time, the profiler on);
+   tokens, 32 ``decode_step``s, then the same 32 tokens from the same
+   cache by that stepwise loop (eager) and through ``decode_multi``, a
+   captured CUDA graph of one step replayed 32 times: the streams must be
+   equal, the captured loop's cache ``torch.equal`` to the eager loop's,
+   the logits
+   finite, and the flash (B3) and decode (B2) attention kernels launched
+   at least 24 and 24 x 32 times, B3's 24 prefill launches on its
+   tensor-core (``wgmma``) route, a replayed call's counted B2 launches
+   exactly 24 x 32; prefill, per-token decode_step and per-token eager
+   and captured times with CUDA events (eager, captured, captured, eager,
+   each from the prefill cache restored in place, after a first captured
+   call whose capture time is logged), then the device's busy share of a
+   prefill, of four decode steps and of a replayed 4-step decode_multi
+   from ``torch.profiler`` (kernel time over wall time, the profiler on,
+   with the CUDA events time of the same call beside it);
 8. token identity of the model path: qwen2-0.5b at full width in float32,
    the same weights on the card and on the CPU (plain versions there),
    one 64-token prompt and 16 greedy tokens must agree (TF32 off);
@@ -162,7 +174,10 @@ fails:
    moe archs under the near-tie rule (``model_token_identity``: expert
    sets compared call by call, a difference must be a near-tie of the
    CPU's probabilities within 1e-5, and a run with one is logged and
-   retried with the next prompt seed, at most three); then B3 at
+   retried with the next prompt seed, at most three; the routing hooks
+   record only what Python runs, so a moe arch's card stream comes from
+   its stepwise loop, and its captured loop must then give the same
+   tokens); then B3 at
    whisper's encoder shape (8 x 1,500, bidirectional) and B2 at its
    cross-attention decode (8 rows x 1,500 slots) held to their plain
    versions and timed as phase 10 times B3 and B2;
@@ -237,7 +252,20 @@ fails:
    (bf16, causal) and at whisper's 8 x 1,500 (bidirectional), both on the
    ``wgmma`` route, B4's at 8 x 512 x 8,192 x 16 from the forward's
    checkpoints; each held to its plain version, then timed as phase 10
-   times kernels, with SDPA's backward as B3's yardstick.
+   times kernels, with SDPA's backward as B3's yardstick;
+33. the launch books (run after phase 10): the serving leaf's k-step call
+   (8 rows, k 4, qwen2-0.5b's widths) timed eager, captured, captured,
+   eager on the host clock (it ends in its host read), and that saving a
+   step set against the captures and replays of phase 3's fp32 serve
+   run; then the B1, B2 and B4 wrappers' counters against the kernels
+   ``torch.profiler`` records over the same calls, for a replayed and an
+   eager call of the serving leaf's k-step loop (8 rows, k 4, qwen2-0.5b's
+   widths) and of qwen2-0.5b's ``decode_multi`` as published (8 rows, 8
+   steps) against its stepwise loop.
+
+Phases 8, 14 and 24 run ``decode_multi`` captured on the card (the moe
+archs' recorded run takes the stepwise loop, and the captured loop must
+then give the same stream).  Each phase's wall time is logged.
 
 The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
 phases above, and the backward kernels ``B3-bwd``, whose entries name the
@@ -246,6 +274,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -319,6 +348,10 @@ def serve(*extra: str, tp: int = 2, launched: bool = True) -> dict:
     what = " ".join(extra)
     done = re.search(r"\[(?:serve|fleet)\] completed (\d+)/(\d+)", out)
     launches = [int(n) for n in re.findall(r"kernel_launches=(\d+)", out)]
+    replays = sum(int(n) for n in re.findall(r"graph_replays=(\d+)", out))
+    captures = sum(int(n) for n in re.findall(r"graph_captures=(\d+)", out))
+    capture_s = sum(float(x) for x in
+                    re.findall(r"graph_capture_s=([\d.]+)", out))
     if not done or not launches:
         fail("serve printed no completion or launch count")
     n_done, n_req = int(done.group(1)), int(done.group(2))
@@ -333,17 +366,30 @@ def serve(*extra: str, tp: int = 2, launched: bool = True) -> dict:
         counters[key] = counters.get(key, 0) + int(n)
     per_replica = re.search(r"per-replica requests=\[([\d, ]+)\]", out)
     run = {"completed": n_done, "launches": sum(launches),
-           "replica_launches": launches, "wall_s": wall,
+           "replica_launches": launches, "graph_replays": replays,
+           "graph_captures": captures, "graph_capture_s": capture_s,
+           "wall_s": wall,
            "ttft_p50_ms": float(ttft.group(1)) if ttft else None,
            "counters": counters,
            "per_replica": ([int(n) for n in per_replica.group(1).split(",")]
                            if per_replica else None)}
     log(f"serve {what}: {n_done}/{n_req} requests, {sum(launches)} kernel "
-        f"launches {launches}, TTFT p50 {run['ttft_p50_ms']} ms, "
+        f"launches {launches}, {captures} graphs captured in "
+        f"{capture_s * 1e3:.3f} ms (host, summed over the workers), "
+        f"{replays} graph replays, TTFT p50 "
+        f"{run['ttft_p50_ms']} ms, "
         f"{wall:.1f} s wall, counters {counters}"
         + (f", per-replica requests {run['per_replica']}"
            if per_replica else ""))
     return run
+
+
+@contextlib.contextmanager
+def phase(label: str):
+    """Log the wall seconds of the phases in the block."""
+    t0 = time.perf_counter()
+    yield
+    log(f"phase {label} took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> None:
@@ -367,45 +413,53 @@ def main() -> None:
 
     # 2. build (nvcc only; the serve subprocesses reuse the library)
     from repro_torch.kernels import _build
-    t0 = time.perf_counter()
-    lib = _build.build_library()
-    log(f"built {lib.name} in {time.perf_counter() - t0:.1f} s")
+    with phase("2 (build)"):
+        lib = _build.build_library()
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "registers" in line or "spill" in line or "Function properties" \
                 in line or "error" in line.lower():
             log(f"  ptxas: {line.strip()}")
 
     # 3. serving, before this process touches the card's memory
-    fp32_run = serve("--backend", "torch", "--multi-step", "4")
-    int8_run = serve("--backend", "torch", "--kv-dtype", "int8")
+    with phase("3 (serve torch fp32 and int8, --multi-step 4)"):
+        fp32_run = serve("--backend", "torch", "--multi-step", "4")
+        int8_run = serve("--backend", "torch", "--kv-dtype", "int8",
+                         "--multi-step", "4")
+    if fp32_run["graph_replays"] <= 0 or int8_run["graph_replays"]:
+        fail(f"serve --multi-step 4 replayed {fp32_run['graph_replays']} "
+             f"captured steps in fp32 (want > 0) and "
+             f"{int8_run['graph_replays']} in int8 (want 0: its pool keeps "
+             f"the per-step loop)")
     # 16.-18. the serving compositions, also before this process touches
     # the card's memory
-    t_comp = time.perf_counter()
-    hybrid = ("--backend", "hybrid", "--prefill-backend", "torch",
-              "--decode-backend", "cpu")
-    for run in (serve(*hybrid), serve(*hybrid, "--kv-dtype", "int8")):
-        if run["counters"].get("handoffs", 0) < 2 * 8:
-            fail(f"hybrid serve handed off {run['counters']}, want each "
-                 f"of 8 requests on each of 2 workers")
-    speculative = ("--backend", "torch", "--speculative-k", "4",
-                   "--draft-backend", "cpu")
-    spec_runs = {"float32": serve(*speculative),
-                 "int8": serve(*speculative, "--kv-dtype", "int8")}
-    for run in spec_runs.values():
-        if run["counters"].get("spec_steps", 0) <= 0:
-            fail("speculative serve ran no speculative step")
-    fleet = serve("--backend", "torch", "--replicas", "2", "--routing",
-                  "affinity", tp=1)
-    if len(fleet["replica_launches"]) != 2:
-        fail(f"fleet serve reported {fleet['replica_launches']} replicas")
+    with phase("16 (serve hybrid fp32 and int8)"):
+        hybrid = ("--backend", "hybrid", "--prefill-backend", "torch",
+                  "--decode-backend", "cpu")
+        for run in (serve(*hybrid), serve(*hybrid, "--kv-dtype", "int8")):
+            if run["counters"].get("handoffs", 0) < 2 * 8:
+                fail(f"hybrid serve handed off {run['counters']}, want each "
+                     f"of 8 requests on each of 2 workers")
+    with phase("17 (serve speculative fp32 and int8)"):
+        speculative = ("--backend", "torch", "--speculative-k", "4",
+                       "--draft-backend", "cpu")
+        spec_runs = {"float32": serve(*speculative),
+                     "int8": serve(*speculative, "--kv-dtype", "int8")}
+        for run in spec_runs.values():
+            if run["counters"].get("spec_steps", 0) <= 0:
+                fail("speculative serve ran no speculative step")
+    with phase("18 (serve fleet)"):
+        fleet = serve("--backend", "torch", "--replicas", "2", "--routing",
+                      "affinity", tp=1)
+        if len(fleet["replica_launches"]) != 2:
+            fail(f"fleet serve reported {fleet['replica_launches']} "
+                 f"replicas")
     # 27. the attacker/victim example on TorchBackend, also before this
     # process touches the card's memory
-    contention()
-    t_comp = time.perf_counter() - t_comp
+    with phase("27 (serve_contention)"):
+        contention()
     # 30. the training CLI, also before this process touches the card
-    t_train = time.perf_counter()
-    train_cli()
-    t_train = time.perf_counter() - t_train
+    with phase("30 (launch.train, two runs)"):
+        train_cli()
 
     from repro_torch.kernels.paged_decode_attention import (
         paged_decode_attention as kernel,
@@ -416,6 +470,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # 4. kernel vs plain version
+    t4 = time.perf_counter()
     worst = {"float32": 0.0, "int8": 0.0}
     for quantized in (False, True):
         for case in edge_cases(quantized) + [serving_case(quantized, dev,
@@ -434,89 +489,107 @@ def main() -> None:
     log(f"kernel vs plain version: max abs err fp32 {worst['float32']:.3g}, "
         f"int8 {worst['int8']:.3g} (atol = rtol = 1e-5)")
     paged_splits_vs_plain(dev, worst)
+    log(f"phase 4 (B1 vs plain) took {time.perf_counter() - t4:.1f} s")
 
     # 5. token identity on the card and on the CPU, at small width
-    token_identity()
+    with phase("5 (serving token identity)"):
+        token_identity()
     # 19. the compositions' streams at the same width
-    composition_identity()
+    with phase("19 (composition identity)"):
+        composition_identity()
 
     # 6. times at the serving shapes
-    entries = [time_kernel(quantized, dev, run["launches"], worst, rows)
-               for rows in (64, 8)
-               for quantized, run in ((False, fp32_run), (True, int8_run))]
+    with phase("6 (B1 times)"):
+        entries = [time_kernel(quantized, dev, run["launches"], worst, rows)
+                   for rows in (64, 8)
+                   for quantized, run in ((False, fp32_run),
+                                          (True, int8_run))]
     # 20. B1 at speculative verify's call shape
-    entries += [time_verify(quantized, dev, spec_runs[key]["launches"])
-                for quantized, key in ((False, "float32"), (True, "int8"))]
+    with phase("20 (B1 at the verify shape)"):
+        entries += [time_verify(quantized, dev, spec_runs[key]["launches"])
+                    for quantized, key in ((False, "float32"),
+                                           (True, "int8"))]
 
     # 7.-10. the model path of the attention-only archs, B3 and B2
     from repro_torch.kernels.decode_attention import decode_attention_bhd
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.mamba_scan import mamba1_scan
-    n = layer_calls("qwen2-0.5b", "attn")
-    launches = model_path(dev, "qwen2-0.5b", {
-        "flash": (flash_attention_bhsd, n, 0),
-        "decode": (decode_attention_bhd, 0, n)}, routes={"wgmma": n})
-    model_token_identity(dev, "qwen2-0.5b")
-    attention_vs_plain(dev)
-    entries += time_attention(dev, launches)
+    with phase("7 (qwen2-0.5b)"):
+        n = layer_calls("qwen2-0.5b", "attn")
+        launches = model_path(dev, "qwen2-0.5b", {
+            "flash": (flash_attention_bhsd, n, 0),
+            "decode": (decode_attention_bhd, 0, n)}, routes={"wgmma": n})
+    with phase("8 (qwen2-0.5b cuda == cpu)"):
+        model_token_identity(dev, "qwen2-0.5b")
+    with phase("9 (B2, B3 vs plain)"):
+        attention_vs_plain(dev)
+    with phase("10 (B2, B3 times)"):
+        entries += time_attention(dev, launches)
+    # 33. the launch books against the profiler
+    with phase("33 (launch counters vs profiler)"):
+        graph_launches(dev, fp32_run)
 
     # 11.-15. the state-space path, B4 (and B3/B2 in zamba2's shared block)
-    t_ssm = time.perf_counter()
-    scan_vs_plain(dev)
-    n = layer_calls("falcon-mamba-7b", "ssm")
-    ssm_launches = model_path(dev, "falcon-mamba-7b",
-                              {"scan": (mamba1_scan, n, n)})
-    n = layer_calls("zamba2-1.2b", "shared_attn")
-    model_path(dev, "zamba2-1.2b", {"flash": (flash_attention_bhsd, n, 0),
-                                    "decode": (decode_attention_bhd, 0, n)},
-               routes={"wgmma": n})
-    # 4 of 64 layers: the full depth in float32 is about 29 GB and too slow
-    # on the CPU; the widths stay as published
-    model_token_identity(dev, "falcon-mamba-7b", n_layers=4)
-    # 8 of 38 layers: one hybrid period and the tail, so both stages run
-    model_token_identity(dev, "zamba2-1.2b", n_layers=8)
-    entries += time_scan(dev, ssm_launches["scan"])
+    with phase("11 (B4 vs plain)"):
+        scan_vs_plain(dev)
+    with phase("12 (falcon-mamba-7b)"):
+        n = layer_calls("falcon-mamba-7b", "ssm")
+        ssm_launches = model_path(dev, "falcon-mamba-7b",
+                                  {"scan": (mamba1_scan, n, n)})
+    with phase("13 (zamba2-1.2b)"):
+        n = layer_calls("zamba2-1.2b", "shared_attn")
+        model_path(dev, "zamba2-1.2b",
+                   {"flash": (flash_attention_bhsd, n, 0),
+                    "decode": (decode_attention_bhd, 0, n)},
+                   routes={"wgmma": n})
+    with phase("14 (ssm archs cuda == cpu)"):
+        # 4 of 64 layers: the full depth in float32 is about 29 GB and too
+        # slow on the CPU; the widths stay as published
+        model_token_identity(dev, "falcon-mamba-7b", n_layers=4)
+        # 8 of 38 layers: one hybrid period and the tail, so both stages
+        # run
+        model_token_identity(dev, "zamba2-1.2b", n_layers=8)
+    with phase("15 (B4 times)"):
+        entries += time_scan(dev, ssm_launches["scan"])
 
     # 21.-24. the moe and encoder-decoder paths, B3 and B2 at whisper's
     # shapes
-    t_moe = time.perf_counter()
-    for arch in ("granite-moe-3b-a800m", "qwen2-moe-a2.7b"):
-        n = layer_calls(arch, "attn")
-        model_path(dev, arch, {"flash": (flash_attention_bhsd, n, 0),
-                               "decode": (decode_attention_bhd, 0, n)},
-                   routes={"wgmma": n})
-    enc, dec = (layer_calls("whisper-small", kind)
-                for kind in ("enc_attn", "dec_attn"))
-    whisper = model_path(
-        dev, "whisper-small",
-        {"flash": (flash_attention_bhsd, enc + dec, 0),
-         "decode": (decode_attention_bhd, 0, 2 * dec)},   # self and cross
-        routes={"wgmma": enc + dec}, prompt=64,
-        extras=audio_frames(dev, "whisper-small", 8))
+    for i, arch in ((21, "granite-moe-3b-a800m"), (22, "qwen2-moe-a2.7b")):
+        with phase(f"{i} ({arch})"):
+            n = layer_calls(arch, "attn")
+            model_path(dev, arch, {"flash": (flash_attention_bhsd, n, 0),
+                                   "decode": (decode_attention_bhd, 0, n)},
+                       routes={"wgmma": n})
+    with phase("23 (whisper-small)"):
+        enc, dec = (layer_calls("whisper-small", kind)
+                    for kind in ("enc_attn", "dec_attn"))
+        whisper = model_path(
+            dev, "whisper-small",
+            {"flash": (flash_attention_bhsd, enc + dec, 0),
+             "decode": (decode_attention_bhd, 0, 2 * dec)},  # self and cross
+            routes={"wgmma": enc + dec}, prompt=64,
+            extras=audio_frames(dev, "whisper-small", 8))
     from repro_torch.configs.base import EncDecConfig
-    # depth cut so that the CPU's share stays short; widths as published
-    model_token_identity(dev, "granite-moe-3b-a800m", n_layers=4)
-    model_token_identity(dev, "qwen2-moe-a2.7b", n_layers=2)
-    model_token_identity(dev, "whisper-small", n_layers=2,
-                         encdec=EncDecConfig(n_encoder_layers=2,
-                                             n_encoder_ctx=1500))
-    entries += time_whisper(dev, whisper)
+    with phase("24 (moe and audio archs cuda == cpu, whisper's kernels)"):
+        # depth cut so that the CPU's share stays short; widths as
+        # published
+        model_token_identity(dev, "granite-moe-3b-a800m", n_layers=4)
+        model_token_identity(dev, "qwen2-moe-a2.7b", n_layers=2)
+        model_token_identity(dev, "whisper-small", n_layers=2,
+                             encdec=EncDecConfig(n_encoder_layers=2,
+                                                 n_encoder_ctx=1500))
+        entries += time_whisper(dev, whisper)
 
     # 25.-26. the calibration on the card, then the DES on its coefficients
-    t_cal = time.perf_counter()
-    rec, long_kernels = calibration(dev, ROOT / "build" / "devmodel")
-    entries += long_kernels
-    des_sweep(rec["device_model"])
+    with phase("25 (calibration)"):
+        rec, long_kernels = calibration(dev, ROOT / "build" / "devmodel")
+        entries += long_kernels
+    with phase("26 (DES sweep)"):
+        des_sweep(rec["device_model"])
     # 28.-32. training: the backward kernels, in process, card vs CPU, times
-    t_fit = time.perf_counter()
-    entries += training(dev)
-    now = time.perf_counter()
-    log(f"phases 1-10 and 19-20 took "
-        f"{t_ssm - t_start - t_comp - t_train:.1f} s, phases 11-15 "
-        f"{t_moe - t_ssm:.1f} s, phases 21-24 {t_cal - t_moe:.1f} s, phases "
-        f"25-26 {t_fit - t_cal:.1f} s, phases 28-32 {now - t_fit:.1f} s and "
-        f"the training CLI's runs of phase 30 {t_train:.1f} s, the serve runs of "
-        f"phases 16-18 and 27 {t_comp:.1f} s")
+    with phase("28-32 (training)"):
+        entries += training(dev)
+    log(f"the run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -694,21 +767,41 @@ def _surrogate_kw(cfg, **extra) -> dict:
 
 
 def token_identity() -> None:
+    """Phase 5: the plans through ``TorchBackend`` on the card (its k-step
+    loop captured and replayed), on the card with the same step run k
+    times eagerly (``graphs`` set to None), and on the CPU; the streams
+    must be equal, and a run with k-step plans must have replayed its
+    graphs."""
     import torch
 
     from repro_torch.backend.torch_backend import TorchBackend
+    runs = {"cuda": ("cuda", True), "cuda eager": ("cuda", False),
+            "cpu": ("cpu", True)}
+
+    def leaf(cfg, device, graphs):
+        be = TorchBackend(device=device, max_steps=cfg.max_steps_per_dispatch,
+                          **_surrogate_kw(cfg))
+        if not graphs:
+            be.graphs = None
+        return be
     for name, (cfg_kw, specs) in TOKEN_RUNS.items():
-        streams = {}
-        for device in ("cuda", "cpu"):
-            streams[device], _, _ = _drive_plans(
-                cfg_kw, specs, lambda cfg: TorchBackend(
-                    device=device, **_surrogate_kw(cfg)))
+        streams, replays = {}, 0
+        for run, (device, graphs) in runs.items():
+            streams[run], be, _ = _drive_plans(
+                cfg_kw, specs, lambda cfg: leaf(cfg, device, graphs))
+            if run == "cuda":
+                replays = be.graphs.replays
         torch.cuda.synchronize()
-        if streams["cuda"] != streams["cpu"]:
-            fail(f"token streams differ between cuda and cpu ({name}): "
-                 f"{streams['cuda']} vs {streams['cpu']}")
-        log(f"token identity {name}: cuda == cpu over "
-            f"{sum(map(len, streams['cuda']))} tokens")
+        for run, got in streams.items():
+            if got != streams["cpu"]:
+                fail(f"token streams differ between {run} and cpu ({name}): "
+                     f"{got} vs {streams['cpu']}")
+        if cfg_kw.get("max_steps_per_dispatch", 1) > 1 and not replays:
+            fail(f"token identity {name}: the k-step plans replayed no "
+                 f"captured step")
+        log(f"token identity {name}: cuda (captured) == cuda eager == cpu "
+            f"over {sum(map(len, streams['cuda']))} tokens, {replays} "
+            f"replayed steps")
 
 
 def composition_identity() -> None:
@@ -997,19 +1090,30 @@ def _clone(tree):
 def model_path(dev, arch: str, kernels: dict, routes=None, *,
                prompt: int = 512, extras=None) -> dict:
     """``arch`` as published (bf16, full width): prefill 8 x ``prompt``,
-    32 decode_steps, the same 32 tokens through decode_multi; ``extras``
-    go to every prefill (whisper's frames).  ``kernels`` maps a name to
-    (wrapper, launches wanted per prefill, per decode step); ``routes``
-    maps a route of B3 to the launches wanted on it per prefill, and then
-    no other route may launch in prefill.  Returns each kernel's launches
-    over this run (every count set to 0 just before it, read just
-    after)."""
+    then 32 tokens by the stepwise ``decode_step`` loop (eager) and by
+    decode_multi, whose step is a captured CUDA graph replayed
+    (``kernels._graph``): the first captured call (warm-up, capture,
+    replays) is timed on its own, then the two loops by CUDA events in the
+    order eager, captured, captured, eager, each from the prefill cache
+    restored with ``copy_`` (so the captured calls replay); tokens and
+    every cache tensor of the two must be ``torch.equal``, and the
+    captured call's launches (replays only) must be exactly the per-step
+    count of ``kernels`` times 32.  Then the
+    busy share of a prefill, of four eager decode_steps and of a replayed
+    4-step decode_multi.  ``extras`` go to every prefill (whisper's
+    frames).  ``kernels`` maps a name to (wrapper, launches wanted per
+    prefill, per decode step); ``routes`` maps a route of B3 to the
+    launches wanted on it per prefill, and then no other route may launch
+    in prefill.  Returns each kernel's launches over this run (every count
+    set to 0 just before it, read just after)."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_graph_cuda import restore, stepwise, unequal_leaves
 
     cfg = get_config(arch)
     B, S, N = 8, prompt, 32
@@ -1067,21 +1171,63 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
     step_ms = start.elapsed_time(end) / N
     if not torch.isfinite(logits).all():
         fail("decode logits are not finite")
+    steps = torch.stack(steps, 1)
+
+    # decode_multi: the first captured call (warm-up, capture, replays),
+    # then the stepwise loop and decode_multi in the order eager,
+    # captured, captured, eager, from the same cache
+    graph_c, eager_c = _clone(saved), _clone(saved)
     start.record()
-    fused, _, clen = model.decode_multi(first, saved, S, N)
+    captured, _, clen = model.decode_multi(first, graph_c, S, N)
     end.record()
     torch.cuda.synchronize()
-    multi_ms = start.elapsed_time(end) / N
+    first_call_ms = start.elapsed_time(end)
+    graphs = model.graphs
+    capture_s = graphs.capture_s
+    multi_ms, outs, replay_counts = [], [], None
+    for graph in (False, True, True, False):
+        c = graph_c if graph else eager_c
+        restore(c, saved)
+        before = {k: w.launches for k, (w, _, _) in kernels.items()}
+        torch.cuda.synchronize()
+        start.record()
+        if graph:
+            fused, _, clen_i = model.decode_multi(first, c, S, N)
+        else:
+            fused, clen_i = stepwise(model, first, c, S, N), S + N
+        end.record()
+        torch.cuda.synchronize()
+        multi_ms.append(start.elapsed_time(end) / N)
+        outs.append((graph, fused, int(clen_i)))
+        if graph:
+            replay_counts = {k: w.launches - before[k]
+                             for k, (w, _, _) in kernels.items()}
+    if graphs.captures != 1:
+        fail(f"{arch}: decode_multi captured {graphs.captures} graphs over "
+             f"one cache storage, want 1")
+    for graph, fused, n in [(True, captured, int(clen))] + outs:
+        if not torch.equal(fused, steps) or n != S + N:
+            fail(f"{arch}: {'decode_multi' if graph else 'the eager loop'} "
+                 f"differs from stepwise decoding: {fused.tolist()} vs "
+                 f"{steps.tolist()}")
+    differ = unequal_leaves(graph_c, eager_c)
+    if differ:
+        fail(f"{arch}: the captured decode_multi's cache differs from the "
+             f"eager loop's in {differ}")
+    for k, (_, _, per_step) in kernels.items():
+        if replay_counts[k] != per_step * N:
+            fail(f"{arch}: {k} kernel counted {replay_counts[k]} launches "
+                 f"over {N} replayed steps, want {per_step} a step")
     counts = {k: w.launches for k, (w, _, _) in kernels.items()}
+    c4 = _clone(saved)
+    model.decode_multi(first, c4, S, 4)                   # its capture
     busy = {
         "prefill": device_share(lambda: model.prefill(toks, extras)),
         "decode_step x4": device_share(lambda: [
             model.decode_step(first, saved, S + i) for i in range(4)]),
+        "decode_multi x4 replayed": device_share(
+            lambda: model.decode_multi(first, c4, S, 4)),
     }
-    stepwise = torch.stack(steps, 1)
-    if not torch.equal(fused, stepwise) or int(clen) != S + N:
-        fail(f"decode_multi differs from stepwise decoding: "
-             f"{fused.tolist()} vs {stepwise.tolist()}")
     for k, (_, per_prefill, per_step) in kernels.items():
         if in_prefill[k] < per_prefill:
             fail(f"{arch}: {k} kernel launched {in_prefill[k]} times in "
@@ -1089,18 +1235,27 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
         if counts[k] - in_prefill[k] < per_step * N:
             fail(f"{arch}: {k} kernel launched {counts[k] - in_prefill[k]} "
                  f"times in {N} decode steps, want >= {per_step * N}")
+    eager_ms = (multi_ms[0] + multi_ms[3]) / 2
+    graph_ms = (multi_ms[1] + multi_ms[2]) / 2
     log(f"model path {arch}: prefill {B} x {S} tokens {prefill_ms:.3f} ms; "
-        f"decode {B} rows: decode_step {step_ms:.3f} ms/token, decode_multi "
-        f"{multi_ms:.3f} ms/token; streams equal over {B} x {N} tokens; "
-        f"launches " + ", ".join(f"{k} {counts[k]} ({in_prefill[k]} in "
-                                 f"prefill)" for k in kernels)
+        f"decode {B} rows: decode_step {step_ms:.3f} ms/token; stepwise "
+        f"loop and decode_multi eager, captured, captured, eager "
+        + ", ".join(f"{ms:.3f}" for ms in multi_ms)
+        + f" ms/token (eager {eager_ms:.3f}, captured {graph_ms:.3f}, "
+        f"{eager_ms / graph_ms:.2f}x); first captured call {first_call_ms:.3f} "
+        f"ms of which capture {capture_s * 1e3:.1f} ms (host); "
+        f"{len(graphs)} graphs held; streams equal over {B} x {N} tokens, "
+        f"captured caches equal to eager; launches "
+        + ", ".join(f"{k} {counts[k]} ({in_prefill[k]} in prefill, "
+                    f"{replay_counts[k]} in a replayed call)" for k in kernels)
         + f"; flash routes in prefill {routes_in_prefill}")
-    for what, (wall_ms, dev_ms, n_kernels, top) in busy.items():
+    for what, (wall_ms, dev_ms, n_kernels, top, ev_ms) in busy.items():
         share = f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"
-        log(f"profile {arch} {what}: wall {wall_ms:.3f} ms (profiler on), "
-            f"device kernels {dev_ms:.3f} ms in {n_kernels} launches, busy "
-            f"share {share}; top: {top}")
-    del model, cache, saved
+        log(f"profile {arch} {what}: wall {wall_ms:.3f} ms, events "
+            f"{ev_ms:.3f} ms (profiler on), device kernels {dev_ms:.3f} ms "
+            f"in {n_kernels} launches, busy share {share} of the wall; top: "
+            f"{top}")
+    del model, cache, saved, graph_c, eager_c, c4, graphs
     torch.cuda.empty_cache()
     return counts
 
@@ -1122,16 +1277,20 @@ def audio_frames(dev, arch: str, batch: int) -> dict:
 def device_share(fn) -> tuple:
     """Wall time of ``fn`` (ending in a synchronize) and the device time of
     the kernels it ran, from ``torch.profiler``: (wall ms, device ms,
-    kernel count, the four largest kernels by device time)."""
+    kernel count, the four largest kernels by device time, the ms between
+    CUDA events recorded before and after ``fn`` in the same call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        start.record()
         fn()
+        end.record()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -1140,7 +1299,7 @@ def device_share(fn) -> tuple:
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:4]
     return (wall_ms, dev_us / 1e3, sum(e.count for e in kernels),
             [(e.key[:60], round(e.self_device_time_total / 1e3, 4), e.count)
-             for e in top])
+             for e in top], start.elapsed_time(end))
 
 
 def layer_calls(arch: str, *kinds: str) -> int:
@@ -1149,6 +1308,80 @@ def layer_calls(arch: str, *kinds: str) -> int:
     from repro_torch.models.model import build_plan
     return sum(stage.n_periods for stage in build_plan(get_config(arch))
                for spec in stage.specs if spec.kind in kinds)
+
+
+# -- phase 33: the launch books against the profiler ---------------------------
+
+def graph_launches(dev, serve_run: dict) -> None:
+    """Phase 33: the serving leaf's k-step call timed eager and captured,
+    and what its saving a step makes of the captures and replays of
+    phase 3's fp32 serve run (``serve_run``); then the wrappers' launch
+    counters against the B1, B2 and B4 kernels ``torch.profiler`` records
+    over the same calls (tests/test_torch_graph_cuda.py's
+    ``counted_launches`` and ``profiled_launches``), for a replayed call
+    and an eager one: the serving leaf's k-step loop at the serve runs'
+    widths (8 rows, k 4) and qwen2-0.5b's ``decode_multi`` as published (8
+    rows of 64 prompt tokens, 8 steps) against its stepwise loop."""
+    import torch
+    sys.path.insert(0, str(ROOT / "tests"))
+    import test_torch_graph_cuda as cases
+
+    graph_be, eager_be = cases.leaf_pair(dev)
+    args = cases.loop_inputs(8, 4, cases.NUM_BLOCKS, seed=2)
+    graph_be._decode_multi(*args, 4)                       # its capture
+    eager_be._decode_multi(*args, 4)
+    # the serving leaf's k-step call (it ends in its host read), eager,
+    # captured, captured, eager: the median of 20 calls each
+    call_ms = []
+    for be in (eager_be, graph_be, graph_be, eager_be):
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            be._decode_multi(*args, 4)
+            walls.append((time.perf_counter() - t0) * 1e3)
+        call_ms.append(sorted(walls)[10])
+    log(f"serving leaf k-step call (8 rows, k 4, qwen2-0.5b's widths): "
+        f"eager, captured, captured, eager "
+        + ", ".join(f"{ms:.3f}" for ms in call_ms) + " ms a call (host "
+        f"clock, median of 20)")
+    saved_ms = ((call_ms[0] + call_ms[3]) - (call_ms[1] + call_ms[2])) / 8
+    log(f"serve fp32 --multi-step 4 (phase 3): {serve_run['graph_captures']} "
+        f"graphs captured in {serve_run['graph_capture_s'] * 1e3:.3f} ms "
+        f"(host), {serve_run['graph_replays']} steps replayed; at this "
+        f"bucket's saving of {saved_ms:.3f} ms a step the replays saved "
+        f"about {serve_run['graph_replays'] * saved_ms:.3f} ms (an estimate: "
+        f"the serve run's buckets differ from this one)")
+    rows = {}
+    for what, be in (("serving leaf, replayed", graph_be),
+                     ("serving leaf, eager", eager_be)):
+        rows[what] = (cases.counted_launches(lambda: be._decode_multi(*args,
+                                                                      4)),
+                      cases.profiled_launches(lambda: be._decode_multi(*args,
+                                                                       4)))
+    model, first, cache, S, ext = cases.model_case(dev, "qwen2-0.5b",
+                                                   batch=8)
+    work = cases.clone(cache)
+    model.decode_multi(first, work, S, cases.N, ext)       # its capture
+    for graph in (True, False):
+
+        def run():
+            cases.restore(work, cache)
+            if graph:
+                model.decode_multi(first, work, S, cases.N, ext)
+            else:
+                cases.stepwise(model, first, work, S, cases.N, ext)
+        rows["qwen2-0.5b " + ("decode_multi, replayed" if graph
+                              else "stepwise loop, eager")] \
+            = (cases.counted_launches(run), cases.profiled_launches(run))
+    for what, (counted, profiled) in rows.items():
+        if not any(counted.values()):
+            fail(f"no launch of B1, B2 or B4 counted ({what})")
+        if counted != profiled:
+            fail(f"launch counters {counted} differ from the profiler's "
+                 f"{profiled} ({what})")
+        log(f"launch books ({what}): counters == profiler: {counted}")
+    del model, cache, work, graph_be, eager_be
+    torch.cuda.empty_cache()
 
 
 # -- phase 8: token identity of the model path --------------------------------
@@ -1175,6 +1408,7 @@ def model_token_identity(dev, arch: str, **cut) -> None:
     from repro_torch.models import model as M
     from repro_torch.models.moe import MoE
     sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_graph_cuda import stepwise
     from test_torch_moe_cuda import NEAR_TIE, routing_report
 
     cfg = get_config(arch).scaled(dtype="float32", **cut)
@@ -1207,10 +1441,24 @@ def model_token_identity(dev, arch: str, **cut) -> None:
                 cache = M.grow_cache(cache, cfg, 1, S + N)
                 first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(
                     torch.int32)
-                fused, _, _ = model.decode_multi(first[:, None], cache, S, N)
+                # the hooks see a moe layer's input only where Python runs
+                # it: on the card a moe arch records the stepwise loop, and
+                # its captured loop must then give the same stream
+                eager = moe and name == "cuda"
+                if eager:
+                    fused = stepwise(model, first[:, None], _clone(cache),
+                                     S, N)
+                else:
+                    fused, _, _ = model.decode_multi(first[:, None], cache,
+                                                     S, N)
             finally:
                 for h in hooks:
                     h.remove()
+            if eager:
+                again, _, _ = model.decode_multi(first[:, None], cache, S, N)
+                if not torch.equal(again, fused):
+                    fail(f"{arch}: captured decode_multi {again.tolist()} vs "
+                         f"the stepwise loop {fused.tolist()} on the card")
             streams[name] = [int(first[0])] + fused[0].tolist()
         tie = None
         if len(calls["cuda"]) != len(calls["cpu"]):
@@ -2097,7 +2345,7 @@ def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
              f"{len(times)} steps, want {bwd_routes} a step")
     if not all(math.isfinite(x) for x in losses):
         fail(f"{arch} training losses are not finite: {losses}")
-    wall_ms, dev_ms, n_kernels, top = device_share(
+    wall_ms, dev_ms, n_kernels, top, _ = device_share(
         lambda: step(state, batches[1]))
     step_ms = statistics.median(times)
     share = f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"

@@ -53,7 +53,9 @@ def _physical_leaf(name: str, cfg, kv_dtype: str, torch_device, arch):
               **ARCH_WIDTHS.get(arch, {}))
     if name == "torch":
         from repro_torch.backend.torch_backend import TorchBackend
-        return TorchBackend(device=torch_device, **kw)
+        return TorchBackend(device=torch_device,
+                            max_steps=max(cfg.max_steps_per_dispatch,
+                                          cfg.speculative_k), **kw)
     from repro_torch.backend.cpu_decode import CpuDecodeBackend
     return CpuDecodeBackend(**kw)
 

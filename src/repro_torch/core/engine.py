@@ -143,6 +143,25 @@ def _kernel_launches(backend) -> int:
                + [_kernel_launches(k) for k in kids])
 
 
+def _graph_books(backend) -> dict:
+    """The captured decode steps of this worker (``TorchBackend.graphs``),
+    summed over the leaves of a composite backend: graphs captured, the
+    host seconds their captures took, and replays."""
+    kids = [getattr(backend, a) for a in ("prefill_backend", "decode_backend",
+                                          "target", "draft")
+            if hasattr(backend, a)]
+    graphs = getattr(backend, "graphs", None)
+    books = {"graph_captures": 0, "graph_capture_s": 0.0, "graph_replays": 0}
+    if graphs is not None:
+        books = {"graph_captures": graphs.captures,
+                 "graph_capture_s": graphs.capture_s,
+                 "graph_replays": graphs.replays}
+    for kid in kids:
+        for key, val in _graph_books(kid).items():
+            books[key] += val
+    return books
+
+
 COMPOSITE_COUNTERS = ("n_handoffs", "n_handoff_blocks", "n_spec_steps",
                       "n_drafted", "n_accepted")
 
@@ -359,6 +378,7 @@ def _worker(cfg: EngineConfig, idx: int, ring_name: str, board_name: str,
         "dequeue_spins": [s.spins for s in reader.stats],
         "trace_events": prof.events if prof is not None else [],
         "kernel_launches": _kernel_launches(backend),
+        **_graph_books(backend),
         "composite": _composite_counters(backend),
         "startup_s": startup_s,
         "execute_wall": execute_wall,

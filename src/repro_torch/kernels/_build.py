@@ -27,6 +27,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Callable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 # <checkout>/src/repro_torch/kernels/_build.py -> <checkout>/build/kernels
@@ -173,3 +174,47 @@ def launch(index: int, fn, *args) -> int:
         return fn(*args, torch.cuda.current_stream(index).cuda_stream)
     with torch.cuda.device(index):
         return fn(*args, torch.cuda.current_stream(index).cuda_stream)
+
+
+# -- the registries kernels._graph reads ---------------------------------------
+
+COUNTED: list = []
+
+
+def counted(wrapper: Callable) -> Callable:
+    """Register ``wrapper``, which adds one to its ``launches`` (and, where
+    it has one, to its route's entry in ``launches_by_route``) where it
+    launches its kernel, and start its count at 0."""
+    wrapper.launches = 0
+    COUNTED.append(wrapper)
+    return wrapper
+
+
+def launch_counts() -> list:
+    """Each registered wrapper's ``launches`` and a copy of its
+    ``launches_by_route`` ({} where it has none), in ``COUNTED``'s order."""
+    return [(w.launches, dict(getattr(w, "launches_by_route", {})))
+            for w in COUNTED]
+
+
+SCRATCH: dict = {}      # (owner, device index) -> (split counters, partials)
+
+
+def split_scratch(owner: str, device, n_counters: int, n_part: int) -> tuple:
+    """``owner``'s split counters on ``device`` (at least ``n_counters``
+    int32, zeroed once when made and left at zero by every launch, whose
+    last block of each group resets its entry) and partials (at least
+    ``n_part`` float32), each replaced by a larger one when a call needs
+    more.  Calls on one device share them, so they must not run
+    concurrently on two streams.  A captured graph keeps the ones in use at
+    its capture (``kernels._graph``)."""
+    import torch
+    counters, part = SCRATCH.get((owner, device.index), (None, None))
+    if counters is None or counters.numel() < n_counters:
+        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
+                               device=device)
+    if part is None or part.numel() < n_part:
+        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
+                           device=device)
+    SCRATCH[owner, device.index] = counters, part
+    return counters, part

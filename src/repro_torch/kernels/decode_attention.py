@@ -22,7 +22,11 @@ raises on what the kernel does not take.  The kernel splits the cache over
 one tile of ``tile_slots`` slots), streams its tiles through a ``cp.async``
 ring, multiplies on the tensor cores (``mma.sync``) in bf16 and on CUDA
 cores in float32, and merges the splits' partial softmax states in a fixed
-order inside the same launch; the source says what bounds it.
+order inside the same launch; the source says what bounds it.  The
+wrapper owns the counters and partials the split merge uses, and runs its
+checks once per call signature (``_build.checked_once``), so that a call
+inside a captured CUDA graph allocates nothing of its own but its output
+(``kernels._graph``).
 ``decode_attention_split_reference`` is that split rule in plain PyTorch,
 for the tests.  For tensors on the CPU the wrapper computes
 ``decode_attention_reference``, the plain PyTorch version and the twin of
@@ -43,6 +47,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._build import counted
 from repro_torch.kernels.flash_attention import DTYPES, HEAD_DIMS, NEG_INF
 
 MAX_GROUP = 48          # query heads per kv head the kernel takes
@@ -123,7 +128,7 @@ def decode_attention_split_reference(q, k_cache, v_cache, cache_len,
     return (num / den).reshape(B, H, D).to(q.dtype)
 
 
-def _check(q, k_cache, v_cache, cache_len, positions, window) -> None:
+def _check(q, k_cache, v_cache, cache_len, positions, window) -> bool:
     if q.dim() != 3 or k_cache.dim() != 4 or v_cache.shape != k_cache.shape:
         raise ValueError(f"want q [B, H, D] and caches [B, KV, S, D]; got "
                          f"{tuple(q.shape)}, {tuple(k_cache.shape)}, "
@@ -153,32 +158,33 @@ def _check(q, k_cache, v_cache, cache_len, positions, window) -> None:
         if t.device != q.device:
             raise ValueError(f"tensors on {t.device} and {q.device}")
     for t in (q, k_cache, v_cache):
-        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]) \
-                or t.data_ptr() % 16:
-            raise ValueError("kernel takes a unit last stride, other strides "
-                             "of whole 16-byte rows and 16-byte aligned data")
+        if t.stride(-1) != 1 or any(s % vec for s in t.stride()[:-1]):
+            raise ValueError("kernel takes a unit last stride and other "
+                             "strides of whole 16-byte rows")
     if S > 1 and positions.stride(1) != 1:
         raise ValueError("the rows of positions must be contiguous")
+    return True
+
+
+_CHECKED: dict = {}         # call signature -> True
+
+
+def _checked(q, k_cache, v_cache, cache_len, positions, window) -> None:
+    """The window on every call, then ``_check`` once per call signature
+    (``_build.checked_once``), then the data's 16-byte alignment."""
+    from repro_torch.kernels._build import checked_once
+    if window is not None and window < 1:
+        raise ValueError(f"window must be >= 1, got {window}")
+    checked_once(_CHECKED, lambda: _check(q, k_cache, v_cache, cache_len,
+                                          positions, window),
+                 q, k_cache, v_cache, cache_len, positions)
+    if (q.data_ptr() | k_cache.data_ptr() | v_cache.data_ptr()) % 16:
+        raise ValueError("kernel takes 16-byte aligned q and caches")
 
 
 @functools.cache
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
-
-
-_COUNTERS: dict = {}
-
-
-def _counters(device: torch.device, n: int) -> torch.Tensor:
-    """The device's split counters, at least ``n``: zeroed once when made,
-    and left at zero by every launch (its last block of each group resets
-    its entry).  Calls on one device share them, so they must not run
-    concurrently on two streams."""
-    buf = _COUNTERS.get(device.index)
-    if buf is None or buf.numel() < n:
-        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
-        _COUNTERS[device.index] = buf
-    return buf
 
 
 def decode_attention_bhd(q, k_cache, v_cache, cache_len, positions, *,
@@ -203,34 +209,35 @@ def _launch(q, k_cache, v_cache, cache_len, positions, *,
     """Launch the kernel on CUDA tensors.  ``n_splits`` (None: the rule of
     ``choose_splits``) lets the tests reach split counts the rule does not
     pick at their shapes."""
-    _check(q, k_cache, v_cache, cache_len, positions, window)
-    from repro_torch.kernels._build import load_library
+    _checked(q, k_cache, v_cache, cache_len, positions, window)
+    from repro_torch.kernels._build import (
+        launch, load_library, split_scratch,
+    )
     lib = load_library()
     B, H, D = q.shape
     KV, S = k_cache.shape[1], k_cache.shape[2]
     blocks = B * KV * -(-(H // KV) // ROW_GROUP)
+    index = q.get_device()
     if n_splits is None:
         n_splits = choose_splits(blocks, S, tile_slots(q.dtype, D),
-                                 _sm_count(q.device.index))
+                                 _sm_count(index))
+    counters, part = split_scratch("B2", q.device, blocks,
+                                   blocks * n_splits * ROW_GROUP * (D + 2)
+                                   if n_splits > 1 else 0)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    part = torch.empty(blocks * n_splits * ROW_GROUP * (D + 2) if n_splits > 1
-                       else 0, dtype=torch.float32, device=q.device)
-    counters = _counters(q.device, blocks)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.da_launch(
-            DTYPES[q.dtype], q.data_ptr(), k_cache.data_ptr(),
-            v_cache.data_ptr(), cache_len.data_ptr(), positions.data_ptr(),
-            out.data_ptr(), part.data_ptr(), counters.data_ptr(), B, H, KV,
-            S, D, int(n_splits), q.stride(0), q.stride(1),
-            *k_cache.stride()[:3], *v_cache.stride()[:3],
-            cache_len.stride(0), positions.stride(0),
-            -1 if window is None else int(window),
-            ctypes.c_float(math.log2(math.e) / D ** 0.5), stream)
+    err = launch(
+        index, lib.da_launch, DTYPES[q.dtype], q.data_ptr(),
+        k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
+        positions.data_ptr(), out.data_ptr(), part.data_ptr(),
+        counters.data_ptr(), B, H, KV, S, D, int(n_splits), q.stride(0),
+        q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
+        cache_len.stride(0), positions.stride(0),
+        -1 if window is None else int(window),
+        ctypes.c_float(math.log2(math.e) / D ** 0.5))
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     decode_attention_bhd.launches += 1
     return out
 
 
-decode_attention_bhd.launches = 0
+counted(decode_attention_bhd)

@@ -56,6 +56,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._build import counted
+
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128, 256)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -264,7 +266,7 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
     return out, (lse if q.dim() == 4 else lse[0])
 
 
-flash_attention_bhsd.launches = 0
+counted(flash_attention_bhsd)
 flash_attention_bhsd.launches_by_route = {"wgmma": 0, "simt": 0}
 
 
@@ -344,7 +346,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     return dq4, dk4, dv4
 
 
-flash_attention_bwd.launches = 0
+counted(flash_attention_bwd)
 flash_attention_bwd.launches_by_route = {"wgmma": 0, "simt": 0}
 
 

@@ -52,6 +52,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels._build import counted
+
 STATE_SIZES = (8, 16, 32, 64)       # d_state values the kernel is built for
 # steps between checkpoints: the kernels' tile (csrc/scan_tile.cuh: kTT),
 # which the library reports and ``_library`` holds to this
@@ -229,7 +231,7 @@ def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None, *,
     return (y, h_last) if ckpt is None else (y, h_last, ckpt)
 
 
-mamba1_scan.launches = 0
+counted(mamba1_scan)
 
 
 def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last, ckpt=None):
@@ -289,7 +291,7 @@ def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last, ckpt=None):
     return dx, ddt, dbc[..., :N], dbc[..., N:], dA, dh0
 
 
-mamba1_scan_bwd.launches = 0
+counted(mamba1_scan_bwd)
 
 
 class MambaScanFn(torch.autograd.Function):

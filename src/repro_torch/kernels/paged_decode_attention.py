@@ -42,6 +42,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels._build import counted
+
 NEG_INF = -1e30
 MAX_GROUP_DIM = 2048    # r * D the kernel takes (r = H / KV)
 ROW_GROUP = 8           # query heads per block
@@ -260,26 +262,6 @@ def _split_plan(index: int, quantized: bool, B: int, H: int, KV: int,
             groups * n_splits * ROW_GROUP * (D + 2) if n_splits > 1 else 0)
 
 
-_SCRATCH: dict = {}
-
-
-def _scratch(device: torch.device, n_counters: int, n_part: int) -> tuple:
-    """The device's split counters (at least ``n_counters``, zeroed once
-    when made and left at zero by every launch: its last block of each
-    group resets its entry) and partials buffer (at least ``n_part``
-    floats), grown as needed.  Calls on one device share them, so they
-    must not run concurrently on two streams."""
-    counters, part = _SCRATCH.get(device.index, (None, None))
-    if counters is None or counters.numel() < n_counters:
-        counters = torch.zeros(max(n_counters, 1024), dtype=torch.int32,
-                               device=device)
-    if part is None or part.numel() < n_part:
-        part = torch.empty(max(n_part, 1 << 16), dtype=torch.float32,
-                           device=device)
-    _SCRATCH[device.index] = counters, part
-    return counters, part
-
-
 def paged_decode_attention(q, k_pages, v_pages, block_tables, seq_lens, *,
                            k_scales=None, v_scales=None):
     """q: [B, H, D] f32; k/v_pages: [KV, N, block, D] f32 or int8;
@@ -307,7 +289,9 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, *, k_scales=None,
     pick at their shapes."""
     quantized = _checked(q, k_pages, v_pages, block_tables, seq_lens,
                          k_scales, v_scales)
-    from repro_torch.kernels._build import launch, load_library
+    from repro_torch.kernels._build import (
+        launch, load_library, split_scratch,
+    )
     lib = load_library()
     B, H, D = q.shape
     KV, N, block, _ = k_pages.shape
@@ -315,7 +299,7 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, *, k_scales=None,
     index = q.get_device()
     n_splits, groups, n_part = _split_plan(index, quantized, B, H, KV, D, nb,
                                            n_splits)
-    counters, part = _scratch(q.device, groups, n_part)
+    counters, part = split_scratch("B1", q.device, groups, n_part)
     if (k_pages.data_ptr() | v_pages.data_ptr()) % 16:
         raise ValueError("page pools must be 16-byte aligned")
     out = torch.empty_like(q)
@@ -334,4 +318,4 @@ def _launch(q, k_pages, v_pages, block_tables, seq_lens, *, k_scales=None,
     return out
 
 
-paged_decode_attention.launches = 0
+counted(paged_decode_attention)

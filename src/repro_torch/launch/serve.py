@@ -342,7 +342,11 @@ def _print_workers(stats, tag: str) -> None:
 def _print_launches(stats, tag: str) -> None:
     workers = [s for s in stats if s["role"].startswith("worker")]
     print(f"[{tag}] workers={len(workers)} kernel_launches="
-          f"{sum(s.get('kernel_launches', 0) for s in workers)}")
+          f"{sum(s.get('kernel_launches', 0) for s in workers)} "
+          f"graph_captures={sum(s.get('graph_captures', 0) for s in workers)}"
+          f" graph_capture_s="
+          f"{sum(s.get('graph_capture_s', 0.0) for s in workers):.6f} "
+          f"graph_replays={sum(s.get('graph_replays', 0) for s in workers)}")
 
 
 def _print_slo(snap, tag: str) -> None:

@@ -136,12 +136,12 @@ def mrope_cos_sin(positions_thw, head_dim: int, theta: float,
     half = head_dim // 2
     if sum(sections) != half:
         raise ValueError(f"mrope sections {sections} do not sum to {half}")
-    dev = positions_thw.device
-    freqs = rope_frequencies(head_dim, theta, dev)                # [half]
-    sec_id = torch.repeat_interleave(
-        torch.arange(len(sections), device=dev),
-        torch.tensor(sections, device=dev))                       # [half]
-    pos_per_slot = positions_thw.float()[sec_id]                  # [half, B, S]
+    freqs = rope_frequencies(head_dim, theta, positions_thw.device)  # [half]
+    # each stream's positions repeated over its section's slots: views and
+    # one copy, no host data (the step is captured in a CUDA graph)
+    pos = positions_thw.float()
+    pos_per_slot = torch.cat([pos[i:i + 1].expand(n, *pos.shape[1:])
+                              for i, n in enumerate(sections)])  # [half, B, S]
     angles = torch.einsum("hbs,h->bsh", pos_per_slot, freqs)      # [B, S, half]
     angles = angles[..., None, :]                                 # [B, S, 1, half]
     return torch.cos(angles), torch.sin(angles)

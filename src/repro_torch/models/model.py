@@ -48,9 +48,10 @@ hd, n]`` (Mamba-2) in float32``}``.  Unlike the reference, ``decode_step``
 writes the new token's K/V and the new ssm states into the cache it is
 given, in place, and returns that cache: a functional update would copy
 the whole cache every token, and a cache that stays put can be captured
-in a CUDA graph later.  What all layers of a call share (the rotary cos/sin
-per layer template, a decode step's lengths, write slots and slot
-positions) is computed once per call, not once per layer.
+in a CUDA graph, as ``decode_multi`` captures its step on the card.  What
+all layers of a call share (the rotary cos/sin per layer template, a
+decode step's lengths, write slots and slot positions) is computed once
+per call, not once per layer.
 
 Attention and the Mamba-1 scan run through ``repro_torch.kernels.ops``:
 the CUDA kernels (B3 at prefill and in training, whisper's encoder
@@ -77,6 +78,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.kernels._graph import GraphCache, storage_key
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
@@ -457,6 +459,8 @@ class Model(nn.Module):
         self.decoder_stages = [s for s in self.plan if not s.encoder]
         if self.encoder_stage is not None:
             self.enc_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
+        # decode_multi's captured steps on the card, made at first use
+        self.graphs: Optional[GraphCache] = None
 
         def layer(spec):
             if spec.kind == "ssm":
@@ -651,22 +655,81 @@ class Model(nn.Module):
         and nothing is read back to the host (the reference's ``lax.scan``
         body, step for step).  Returns (generated [B, n_steps] int32, cache,
         new cache_len); ``extras`` are the same for every step, as in the
-        reference.  Sequences that hit ``eos_id`` emit it thereafter."""
+        reference.  Sequences that hit ``eos_id`` emit it thereafter.
+
+        The step reads and writes static buffers (``_MultiState``): the
+        carried token, the length, the EOS mask and the token column, which
+        a device index picks.  On the card one step is captured as a CUDA
+        graph and replayed ``n_steps`` times (``kernels._graph``; the
+        graphs are held in ``Model.graphs``), keyed by
+        the batch, ``n_steps``, ``eos_id`` and the storage of the cache,
+        of ``extras``' tensors and of the weights; a cache with new storage
+        is captured anew.  CPU tensors run the same step eagerly.  The
+        outputs are copies of the static buffers, which a later call
+        overwrites."""
         B = tokens.shape[0]
-        tok = tokens
-        clen = torch.as_tensor(cache_len, device=self.device).to(torch.int32)
-        done = torch.zeros(B, dtype=torch.bool, device=self.device)
-        out = []
-        for _ in range(n_steps):
-            logits, cache = self.decode_step(tok, cache, clen, extras)
-            nxt = logits[:, 0, :self.cfg.vocab_size].argmax(-1).to(torch.int32)
+        if self.device.type == "cuda":
+            if self.graphs is None:
+                self.graphs = GraphCache(capacity=MULTI_GRAPHS)
+            leaves = [t for layers in cache.values()
+                      for names in layers.values() for t in names.values()]
+            ext = [t for t in (extras or {}).values()
+                   if isinstance(t, torch.Tensor)]
+            entry = self.graphs.entry(
+                (B, n_steps, eos_id, storage_key(*leaves, *ext),
+                 tuple(p.data_ptr() for p in self.parameters())),
+                lambda: _MultiState(B, n_steps, self.device))
+            st = entry.state
+        else:
+            entry, st = None, _MultiState(B, n_steps, self.device)
+        st.tok.copy_(tokens)
+        if isinstance(cache_len, torch.Tensor):
+            st.clen.copy_(cache_len.reshape(()))
+        else:
+            st.clen.fill_(cache_len)
+        st.done.zero_()
+        st.idx.zero_()
+
+        def step():
+            logits, _ = self.decode_step(st.tok, cache, st.clen, extras)
+            nxt = logits[:, 0, :self.cfg.vocab_size].argmax(-1).to(
+                torch.int32)
             if eos_id is not None:
-                nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
-                done = done | (nxt == eos_id)
-            out.append(nxt)
-            tok = nxt[:, None]
-            clen = clen + 1
-        return torch.stack(out, 1), cache, clen
+                nxt = torch.where(st.done, torch.full_like(nxt, eos_id), nxt)
+                st.done.logical_or_(nxt == eos_id)
+            st.out.index_copy_(1, st.idx, nxt[:, None])
+            st.tok.copy_(nxt[:, None])
+            st.clen.add_(1)
+            st.idx.add_(1)
+
+        if entry is None:
+            for _ in range(n_steps):
+                step()
+        else:
+            self.graphs.run(entry, step, n_steps)
+        return st.out.clone(), cache, st.clen.clone()
+
+
+# decode_multi's graphs held at most.  Its key holds the caller's cache
+# storage, so a caller that makes a new cache for each call (a clone per
+# timed run, a fresh prefill per batch) would otherwise keep a dead graph
+# per cache; a server or the calibration keeps one cache per batch shape
+# and reuses its graph, and 8 leaves room for a few such callers at once.
+MULTI_GRAPHS = 8
+
+
+class _MultiState:
+    """``decode_multi``'s static buffers: the carried token [B, 1] and the
+    length (0-d), int32; the EOS mask [B]; the step index [1]; the
+    generated tokens [B, n_steps] int32."""
+
+    def __init__(self, batch: int, n_steps: int, device):
+        i32 = dict(dtype=torch.int32, device=device)
+        self.tok = torch.empty((batch, 1), **i32)
+        self.clen = torch.empty((), **i32)
+        self.done = torch.empty(batch, dtype=torch.bool, device=device)
+        self.idx = torch.empty(1, dtype=torch.int64, device=device)
+        self.out = torch.empty((batch, n_steps), **i32)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,390 @@
+"""Captured decode loops against the eager loop, on the card.
+
+These tests need the card (marker ``cuda``) and skip without one.  They
+import neither JAX nor ``repro``:
+
+    python -m pytest -q --noconftest -m cuda tests/test_torch_graph_cuda.py
+
+``Model.decode_multi`` on all ten architectures at full width, cut in
+depth (``GRAPH_CUTS``: gemma3-12b keeps one period of five sliding-window
+layers and a global one, over a prompt that takes its ring past the
+window; zamba2-1.2b a hybrid period and the tail, so its shared block;
+qwen2-vl-7b runs with M-RoPE positions; whisper-small two encoder and two
+decoder layers over 1,500 frames), bf16 as published: the captured loop
+(``kernels._graph``) against the stepwise ``decode_step`` loop
+(``stepwise``), tokens and every cache tensor ``torch.equal``, with and
+without an EOS id, the captured call under
+``set_sync_debug_mode("error")``, and a second call on the same cache
+replaying without a new capture.  ``TorchBackend._decode_multi`` at
+qwen2-0.5b's widths at 1 to 64 rows in fp32, bit-equal to the same step
+run k times eagerly (a twin with ``graphs`` set to None; pools too, but
+for the scratch page, where masked rows' writes collide), and a call
+whose k shrinks replaying its bucket's graph; int8 makes no graph.  The wrappers' launch counters, replays included,
+against the B1, B2 and B4 kernels ``torch.profiler`` records over the same
+calls (``profiled_launches``; ``chip_smoke.py`` phase 33 uses it too).  A
+step that syncs the host fails its capture and raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.configs.base import EncDecConfig
+from repro_torch.models import model as M
+
+B, N = 4, 8
+PROMPT = 64
+NUM_BLOCKS = 1536       # the serving leaf's pool: 64 rows of 24 pages
+GRAPH_CUTS = {
+    "qwen2-0.5b": dict(n_layers=2),
+    "olmo-1b": dict(n_layers=2),
+    "granite-20b": dict(n_layers=2),
+    "gemma3-12b": dict(n_layers=6),          # 5 local + 1 global
+    "qwen2-vl-7b": dict(n_layers=2),
+    "falcon-mamba-7b": dict(n_layers=2),
+    "zamba2-1.2b": dict(n_layers=8),         # one period of 6 and a tail of 2
+    "granite-moe-3b-a800m": dict(n_layers=2),
+    "qwen2-moe-a2.7b": dict(n_layers=2),
+    "whisper-small": dict(n_layers=2, encdec=EncDecConfig(
+        n_encoder_layers=2, n_encoder_ctx=1500)),
+}
+# kernel names as the profiler reports them (the __global__ functions of
+# csrc/), most specific first
+KERNEL_NAMES = (("B1", "paged_decode_attention_kernel"),
+                ("B2", "decode_attention_kernel"),
+                ("B4", "mamba1_scan_kernel"))
+
+
+@pytest.fixture(scope="module")
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no "
+                    "CPU mode")
+    return torch.device("cuda")
+
+
+def clone(tree):
+    return {k: clone(v) if isinstance(v, dict) else v.clone()
+            for k, v in tree.items()}
+
+
+def leaves(tree, prefix=""):
+    for key, val in sorted(tree.items()):
+        if isinstance(val, dict):
+            yield from leaves(val, f"{prefix}{key}.")
+        else:
+            yield f"{prefix}{key}", val
+
+
+def restore(dst, src) -> None:
+    """Copy ``src``'s values into ``dst``'s tensors (their storage kept)."""
+    for (_, d), (_, s) in zip(leaves(dst), leaves(src)):
+        d.copy_(s)
+
+
+def unequal_leaves(a, b) -> list:
+    return [k for (k, x), (_, y) in zip(leaves(a), leaves(b))
+            if not torch.equal(x, y)]
+
+
+def model_case(dev, arch: str, *, batch: int = B, steps: int = N,
+               seed: int = 0, **cut):
+    """``arch`` at full width (``cut`` in depth), bf16, weights from a
+    seeded generator on the card; a prefill of ``batch`` prompts, the
+    cache grown by ``steps``.  gemma3-12b's prompt reaches its window
+    (1,020 tokens with a window of 1,024), so decode wraps its ring.
+    Returns (model, first tokens [batch, 1], cache, prompt length, the
+    extras every decode step takes)."""
+    cfg = get_config(arch).scaled(**cut)
+    model = M.Model(cfg, generator=torch.Generator(dev).manual_seed(seed),
+                    device=dev)
+    S = (cfg.sliding_window - 4 if cfg.local_global_ratio is not None
+         else PROMPT)
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (batch, S))
+                            .astype(np.int32)).to(dev)
+    extras, step_extras = {}, {}
+    if cfg.mrope_sections is not None:
+        def thw(start, n):
+            p = np.arange(start, start + n)
+            a = np.stack([p, p // 2, p % 3]).astype(np.int32)
+            return torch.from_numpy(np.broadcast_to(
+                a[:, None], (3, batch, n)).copy()).to(dev)
+        extras, step_extras = ({"mrope_positions": thw(0, S)},
+                               {"mrope_positions": thw(S, 1)})
+    if cfg.family == "audio":
+        g = torch.Generator(dev).manual_seed(seed + 1)
+        extras = {"frames": torch.randn(
+            (batch, cfg.encdec.n_encoder_ctx, cfg.d_model), generator=g,
+            device=dev).to(cfg.param_dtype())}
+    logits, cache = model.prefill(toks, extras)
+    cache = M.grow_cache(cache, cfg, batch, S + steps)
+    first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+    return model, first, cache, S, step_extras
+
+
+def stepwise(model, first, cache, S: int, n: int, extras=None,
+             eos_id=None):
+    """The loop ``decode_multi`` captures, run eagerly: ``n`` calls of
+    ``decode_step`` on ``cache`` (in place) from length ``S``, greedy over
+    the real vocabulary on the card, a sequence that sampled ``eos_id``
+    emitting it thereafter.  Returns the tokens [B, n] int32."""
+    vocab = model.cfg.vocab_size
+    done = torch.zeros(first.shape[0], dtype=torch.bool, device=first.device)
+    tok, out = first, []
+    for i in range(n):
+        logits, cache = model.decode_step(tok, cache, S + i, extras)
+        nxt = logits[:, 0, :vocab].argmax(-1).to(torch.int32)
+        if eos_id is not None:
+            nxt = torch.where(done, torch.full_like(nxt, eos_id), nxt)
+            done = done | (nxt == eos_id)
+        out.append(nxt)
+        tok = nxt[:, None]
+    return torch.stack(out, 1)
+
+
+def profiled_launches(fn) -> dict:
+    """B1, B2 and B4 kernels ``torch.profiler`` records while ``fn`` runs
+    (ending in a synchronize), by id."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    counts = {kid: 0 for kid, _ in KERNEL_NAMES}
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        for kid, name in KERNEL_NAMES:
+            if name in e.key:
+                counts[kid] += e.count
+                break
+    return counts
+
+
+def counted_launches(fn) -> dict:
+    """The wrappers' launch counters' rise over ``fn``, by id."""
+    from repro_torch.kernels.decode_attention import decode_attention_bhd
+    from repro_torch.kernels.mamba_scan import mamba1_scan
+    from repro_torch.kernels.paged_decode_attention import (
+        paged_decode_attention,
+    )
+    wrappers = {"B1": paged_decode_attention, "B2": decode_attention_bhd,
+                "B4": mamba1_scan}
+    before = {k: w.launches for k, w in wrappers.items()}
+    fn()
+    torch.cuda.synchronize()
+    return {k: w.launches - before[k] for k, w in wrappers.items()}
+
+
+def no_sync(fn):
+    """``fn()`` with any host sync raising."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+# ---------------------------------------------------------------------------
+# the model path
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_eos", (False, True), ids=("free", "eos"))
+@pytest.mark.parametrize("arch", sorted(GRAPH_CUTS))
+def test_captured_decode_multi_equals_the_eager_loop(cuda_device, arch,
+                                                     with_eos):
+    model, first, cache, S, ext = model_case(cuda_device, arch,
+                                             **GRAPH_CUTS[arch])
+    eos = None
+    if with_eos:        # a token the free stream emits midway
+        free = stepwise(model, first, clone(cache), S, N, ext)
+        eos = int(free[0, N // 2])
+    eager_cache, graph_cache = clone(cache), clone(cache)
+    want = stepwise(model, first, eager_cache, S, N, ext, eos)
+    outs = []
+    for call in range(2):           # capture and replay, then replay only
+        if call:
+            restore(graph_cache, cache)
+        got, _, got_len = no_sync(lambda: model.decode_multi(
+            first, graph_cache, S, N, ext, eos_id=eos))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (call, got.tolist(), want.tolist())
+        assert int(got_len) == S + N
+        assert unequal_leaves(graph_cache, eager_cache) == [], call
+        assert model.graphs.captures == 1 and len(model.graphs) == 1
+        outs.append(got)
+    assert torch.equal(outs[0], want)       # a copy: the replay left it
+    if with_eos:
+        assert (want[0, N // 2:] == eos).all()
+
+
+@pytest.mark.cuda
+def test_a_new_cache_storage_captures_anew(cuda_device):
+    model, first, cache, S, ext = model_case(cuda_device, "qwen2-0.5b",
+                                             n_layers=1)
+    a, b = clone(cache), clone(cache)
+    ta, _, _ = model.decode_multi(first, a, S, N, ext)
+    tb, _, _ = model.decode_multi(first, b, S, N, ext)
+    assert torch.equal(ta, tb)
+    assert model.graphs.captures == 2 and len(model.graphs) == 2
+    model.decode_multi(first, a, S + N - 4, 4, ext)     # another n_steps
+    assert model.graphs.captures == 3
+
+
+@pytest.mark.cuda
+def test_model_counters_match_the_profiler(cuda_device):
+    for arch in ("qwen2-0.5b", "falcon-mamba-7b"):
+        model, first, cache, S, ext = model_case(cuda_device, arch,
+                                                 n_layers=2)
+        work = clone(cache)
+        model.decode_multi(first, work, S, N, ext)        # capture
+        for replayed in (True, False):          # replays, the eager loop
+
+            def run():
+                restore(work, cache)
+                if replayed:
+                    model.decode_multi(first, work, S, N, ext)
+                else:
+                    stepwise(model, first, work, S, N, ext)
+            counted = counted_launches(run)
+            assert counted == profiled_launches(run), (arch, replayed)
+            per_step = 2 if arch == "qwen2-0.5b" else 0
+            assert counted["B2"] == per_step * N
+            assert counted["B4"] == (2 - per_step) * N
+
+
+@pytest.mark.cuda
+def test_a_host_sync_in_the_step_fails_the_capture(cuda_device):
+    from repro_torch.kernels._graph import GraphCache
+    x = torch.zeros(4, device=cuda_device)
+    graphs = GraphCache(capacity=1)
+    entry = graphs.entry("k", lambda: x)
+
+    def step():
+        x.add_(1)
+        if x.sum().item() > 1e9:        # a host read: a sync
+            x.zero_()
+    with pytest.raises(RuntimeError):
+        graphs.run(entry, step, 3)
+    assert entry.graph is None and graphs.captures == 0
+    torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# the serving leaf
+# ---------------------------------------------------------------------------
+
+
+def leaf_pair(dev, kv_dtype="float32", num_blocks=NUM_BLOCKS):
+    """Two TorchBackends at qwen2-0.5b's widths, block 64, on the card, with
+    the same weights and the same random pools: the first captures its
+    k-step loop, the second (``graphs`` set to None) runs the same step k
+    times eagerly."""
+    from repro_torch.backend import ARCH_WIDTHS
+    from repro_torch.backend.surrogate import draw_params
+    from repro_torch.backend.torch_backend import TorchBackend
+    widths = ARCH_WIDTHS["qwen2-0.5b"]
+    params = draw_params(seed=0, **widths)
+    pair = [TorchBackend(device=dev, params=params, block_size=64,
+                         num_blocks=num_blocks, kv_dtype=kv_dtype,
+                         max_steps=4, **widths) for _ in range(2)]
+    pair[1].graphs = None
+    g = torch.Generator(dev).manual_seed(5)
+    if kv_dtype == "float32":
+        pools = [torch.randn(pair[0].k_pages.shape, generator=g, device=dev)
+                 for _ in range(2)]
+    else:
+        pools = [torch.randint(-127, 128, pair[0].k_pages.shape, generator=g,
+                               device=dev).to(torch.int8) for _ in range(2)]
+        for be in pair:
+            be.k_scales.fill_(0.5)
+            be.v_scales.fill_(0.5)
+    for be in pair:
+        be.k_pages.copy_(pools[0])
+        be.v_pages.copy_(pools[1])
+    return pair
+
+
+def loop_inputs(rows: int, k: int, num_blocks: int, seed: int):
+    """Ragged tables of distinct pages (1 to 24 pages a row, fewer when the
+    pool is short), start positions inside each row's last page, first
+    tokens, budgets from 1 to k, no EOS."""
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(num_blocks)
+    rids = list(range(100, 100 + rows))
+    tables, start, first, budgets, used = {}, {}, {}, {}, 0
+    for rid in rids:
+        n = int(rng.integers(1, min(24, num_blocks // rows) + 1))
+        tables[rid] = [int(p) for p in perm[used:used + n]]
+        used += n
+        start[rid] = 64 * n - int(rng.integers(k, 64))
+        first[rid] = int(rng.integers(0, 151_936))
+        budgets[rid] = int(rng.integers(1, k + 1))
+    return rids, tables, start, first, budgets, {rid: None for rid in rids}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", (1, 3, 8, 33, 64))
+def test_captured_serving_loop_equals_the_eager_loop(cuda_device, rows):
+    k, nb = 4, NUM_BLOCKS
+    graph_be, eager_be = leaf_pair(cuda_device)
+    args = loop_inputs(rows, k, nb, seed=rows)
+    free = eager_be._decode_multi(*args, k)
+    # an EOS that the first row samples at its first step, when it has one
+    rids, eos = args[0], dict(args[5])
+    eos[rids[0]] = free[0][rids[0]]
+    args = (*args[:5], eos)
+    eager_be.k_pages.copy_(graph_be.k_pages)
+    eager_be.v_pages.copy_(graph_be.v_pages)
+    k0, v0 = graph_be.k_pages.clone(), graph_be.v_pages.clone()
+    want = eager_be._decode_multi(*args, k)
+    for call in range(2):
+        if call:
+            graph_be.k_pages.copy_(k0)
+            graph_be.v_pages.copy_(v0)
+        # the helper runs capture and replay under
+        # set_sync_debug_mode("error"); the call's host copy and read lie
+        # outside them
+        got = graph_be._decode_multi(*args, k)
+        assert got == want, call
+        for mine, theirs in ((graph_be.k_pages, eager_be.k_pages),
+                             (graph_be.v_pages, eager_be.v_pages)):
+            assert torch.equal(mine[:, :nb], theirs[:, :nb]), call
+    assert graph_be.graphs.captures == 1 and len(graph_be.graphs) == 1
+    assert all(rids[0] not in row for row in want[1:])
+    # the tail of a request: k shrinks, the bucket's graph replays
+    budgets = {rid: min(b, k - 1) for rid, b in args[4].items()}
+    short = (*args[:4], budgets, args[5])
+    eager_be.k_pages.copy_(graph_be.k_pages)
+    eager_be.v_pages.copy_(graph_be.v_pages)
+    assert graph_be._decode_multi(*short, k - 1) == \
+        eager_be._decode_multi(*short, k - 1)
+    assert graph_be.graphs.captures == 1
+
+
+@pytest.mark.cuda
+def test_int8_pool_makes_no_graph(cuda_device):
+    graph_be, eager_be = leaf_pair(cuda_device, kv_dtype="int8")
+    args = loop_inputs(5, 4, NUM_BLOCKS, seed=1)
+    assert graph_be._decode_multi(*args, 4) == eager_be._decode_multi(*args,
+                                                                      4)
+    assert len(graph_be.graphs) == 0 and graph_be.graphs.captures == 0
+
+
+@pytest.mark.cuda
+def test_serving_counters_match_the_profiler(cuda_device):
+    graph_be, eager_be = leaf_pair(cuda_device)
+    args = loop_inputs(8, 4, NUM_BLOCKS, seed=2)
+    graph_be._decode_multi(*args, 4)                      # capture
+    for be in (graph_be, eager_be):
+        counted = counted_launches(lambda: be._decode_multi(*args, 4))
+        assert counted == profiled_launches(
+            lambda: be._decode_multi(*args, 4))
+        assert counted == {"B1": 4, "B2": 0, "B4": 0}
