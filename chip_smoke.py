@@ -263,14 +263,47 @@ fails:
    widths) and of qwen2-0.5b's ``decode_multi`` as published (8 rows, 8
    steps) against its stepwise loop.
 
+34. the dry-run on the card's host (run after the build, before the serve
+   runs; it needs no card): ``python -m repro_torch.launch.dryrun`` as
+   five subprocesses at once, qwen2-0.5b ``decode_32k`` and ``train_4k``,
+   granite-moe-3b-a800m ``prefill_32k`` (the moe's a2a body) and
+   falcon-mamba-7b ``prefill_32k`` on ``pod_16x16``, and qwen2-0.5b
+   ``decode_32k`` with ``--multi-pod``; each must exit 0 and print its OK
+   line, and its record (``build/dryrun``) must be ``ok`` with FLOPs,
+   bytes, collectives and memory a device above 0; the log gives each
+   record's numbers and its dominant roofline term on the H100 spec
+   (datasheet figures, ``repro_torch.roofline.model.H100_SXM``);
+35. the placed model path (after phase 32): qwen2-0.5b as published (bf16)
+   under a world-size-1 NCCL process group, its parameters placed as
+   DTensors on a (1, 1) ("data", "model") mesh (``place_params``), prefill
+   8 x 512 and 8 ``decode_step``s from the grown, placed cache; the tokens
+   and B3's and B2's launch counts must equal, bit for bit, those of the
+   same model with no mesh (the kernels run through ``kernels.ops``' local
+   regions), and the log says whether the prefill logits are equal too;
+36. B3, B2 and B4 at the local shapes one rank of ``pod_16x16`` gives them
+   (``head_layout(..., tp=16)``, dp 16): B3 at qwen2-0.5b's
+   ``prefill_32k`` (2 x 32,768, 1 query head and 1 kv group, causal; held
+   to the chunked plain version), B2 at its ``decode_32k`` (8 rows over
+   the rank's 2,048 of 32,768 slots, all 16 padded heads over 2 kv heads,
+   writing the log-sum-exp by which the ranks merge, as ``kernels.ops``
+   calls it on a slot-sharded cache; the merge's collectives need ranks
+   and are not timed),
+   B4 at falcon-mamba-7b's ``prefill_32k`` (2 x 32,768 x 512 channels of
+   8,192, d_state 16; held to its plain version at 2,048 steps, whose
+   per-step loop would take seconds at 32,768, and the plain version
+   timed once at the full length); each timed beside its plain version
+   and its bound as phases 10 and 15 time them; B3's and B2's launches are
+   phase 35's, B4's phase 12's.
+
 Phases 8, 14 and 24 run ``decode_multi`` captured on the card (the moe
 archs' recorded run takes the stepwise loop, and the captured loop must
 then give the same stream).  Each phase's wall time is logged.
 
 The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
 phases above, and the backward kernels ``B3-bwd``, whose entries name the
-route their launch counts moved on as ``kernel_route``, and ``B4-bwd``);
-the last line is ``{"ok": true, "device": {...}}``.
+route their launch counts moved on as ``kernel_route``, and ``B4-bwd``,
+and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``; the
+last line is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -419,6 +452,10 @@ def main() -> None:
         if "registers" in line or "spill" in line or "Function properties" \
                 in line or "error" in line.lower():
             log(f"  ptxas: {line.strip()}")
+
+    # 34. the dry-run, on the host, before the serve runs
+    with phase("34 (dry-run cells)"):
+        dryrun_cells()
 
     # 3. serving, before this process touches the card's memory
     with phase("3 (serve torch fp32 and int8, --multi-step 4)"):
@@ -589,6 +626,12 @@ def main() -> None:
     # 28.-32. training: the backward kernels, in process, card vs CPU, times
     with phase("28-32 (training)"):
         entries += training(dev)
+    # 35.-36. the model path placed on a mesh, the kernels at one rank's
+    # shapes of the production mesh
+    with phase("35 (qwen2-0.5b placed on a (1, 1) mesh)"):
+        mesh_launches = mesh_path(dev)
+    with phase("36 (B3, B2, B4 at pod_16x16's local shapes)"):
+        entries += local_kernels(dev, mesh_launches, ssm_launches["scan"])
     log(f"the run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1703,10 +1746,13 @@ def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True,
 
 
 def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64,
-                case=None) -> dict:
+                case=None, with_lse: bool = False) -> dict:
     """B2 at one shape, every row's Sc slots valid, held to its plain
     version on the timed inputs, then timed beside it, SDPA and its bound;
-    ``case`` gives the inputs (default: the tests' ``model_decode``)."""
+    ``case`` gives the inputs (default: the tests' ``model_decode``).
+    With ``with_lse`` the calls are those of a slot-sharded cache's rank
+    (``kernels.ops``): B2 also writes each row's log-sum-exp, which is
+    held to the plain version's too."""
     import torch
     import torch.nn.functional as F
 
@@ -1717,11 +1763,18 @@ def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64,
     c = case or cases.model_decode(dev, torch.bfloat16, B=B, Sc=Sc, H=H,
                                    KV=KV, D=D)
     c["cache_len"] = torch.full((B,), Sc, dtype=torch.int32, device=dev)
-    got = cases.run_decode(decode_attention_bhd, c)
+    kw = {"with_lse": True} if with_lse else {}
+    got = cases.run_decode(decode_attention_bhd, c, **kw)
     name = f"decode_attention_bf16_b{B}_s{Sc}" + (
-        "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}")
-    want = cases.run_decode(decode_attention_reference, c)
-    err = _held_to_plain(got, want, name, "decode")
+        "" if (H, KV, D) == (14, 2, 64) else f"_h{H}kv{KV}d{D}") + (
+        "_lse" if with_lse else "")
+    want = cases.run_decode(decode_attention_reference, c, **kw)
+    if with_lse:
+        err = max(_held_to_plain(got[1], want[1], f"{name} lse", "decode"),
+                  _held_to_plain(got[0], want[0], name, "decode"))
+        want = want[0]
+    else:
+        err = _held_to_plain(got, want, name, "decode")
     q4 = c["q"][:, :, None]                                 # [B, H, 1, D]
     mask = ((c["positions"] >= 0) & (c["positions"] < c["cache_len"][:, None])
             )[:, None, None, :]
@@ -1733,11 +1786,12 @@ def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64,
                           **YARDSTICK_TOL):
         fail("SDPA yardstick does not compute decode attention's function")
     ms, plain_ms = _time_pair(
-        lambda: cases.run_decode(decode_attention_bhd, c),
-        lambda: cases.run_decode(decode_attention_reference, c))
+        lambda: cases.run_decode(decode_attention_bhd, c, **kw),
+        lambda: cases.run_decode(decode_attention_reference, c, **kw))
     library_ms = cuda_ms(sdpa)
     nbytes = (2 * 2 * B * H * D + 2 * 2 * B * Sc * KV * D   # q, o, k, v
-              + 4 * B + 4 * Sc)                             # lengths, positions
+              + 4 * B + 4 * Sc                              # lengths, positions
+              + (4 * B * H if with_lse else 0))             # lse
     flops = 4 * D * H * B * Sc                              # every slot kept
     bound_ms, bound_by = _bound(nbytes, flops)
     tile = tile_slots(torch.bfloat16, D)
@@ -1746,7 +1800,7 @@ def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64,
         blocks, Sc, tile, torch.cuda.get_device_properties(
             dev).multi_processor_count), tile))
     dev_ms = _device_ms_per_call(
-        lambda: cases.run_decode(decode_attention_bhd, c))
+        lambda: cases.run_decode(decode_attention_bhd, c, **kw))
     log(f"{name}: H={H} KV={KV} D={D}, {blocks} x {n_splits} blocks: max abs "
         f"err {err:.3g}, kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA "
         f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}; {nbytes} "
@@ -2572,6 +2626,229 @@ def training(dev) -> list:
         f"{t2 - t1:.1f} s, phase 31 {t3 - t2:.1f} s, phase 32 "
         f"{time.perf_counter() - t3:.1f} s")
     return entries
+
+
+# -- phases 34-36: the dry-run, the placed model path, one rank's shapes -----
+
+DRYRUN_CELLS = (("qwen2-0.5b", "decode_32k", ()),
+                ("qwen2-0.5b", "train_4k", ()),
+                ("granite-moe-3b-a800m", "prefill_32k", ()),
+                ("falcon-mamba-7b", "prefill_32k", ()),
+                ("qwen2-0.5b", "decode_32k", ("--multi-pod",)))
+DRYRUN_TIMEOUT_S = 300
+
+
+def dryrun_cells() -> list:
+    """Phase 34: the dry-run CLI for each of ``DRYRUN_CELLS``, all at once
+    as subprocesses of their own sessions (killed at the time limit);
+    returns the records."""
+    out_dir = ROOT / "build" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    procs = []
+    for arch, cell, extra in DRYRUN_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--cell", cell, "--out", str(out_dir), *extra]
+        procs.append((arch, cell, extra, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=env, cwd=ROOT, start_new_session=True)))
+    t0 = time.perf_counter()
+    recs = []
+    for arch, cell, extra, proc in procs:
+        try:
+            out, _ = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        mesh = "multipod_2x16x16" if extra else "pod_16x16"
+        ok = [line for line in out.splitlines()
+              if f"{arch} x {cell}: OK" in line]
+        if proc.returncode != 0 or not ok:
+            for line in out.splitlines()[-30:]:
+                log(f"  {line}")
+            fail(f"dryrun {arch} {cell} {' '.join(extra)} exited "
+                 f"{proc.returncode}")
+        log(ok[0])
+        rec = json.loads((out_dir / f"{mesh}__{arch}__{cell}.json"
+                          ).read_text())
+        mem, colls, terms = rec["memory"], rec["collectives"], rec["roofline"]
+        if rec["status"] != "ok" or not (
+                rec["flops_per_device"] > 0 and rec["bytes_per_device"] > 0
+                and colls["total_count"] > 0
+                and mem["argument_size_in_bytes"] > 0):
+            fail(f"dryrun record {mesh} {arch} {cell} is not whole: {rec}")
+        log(f"  {mesh} {arch} {cell}: {rec['n_devices']} ranks, flops/dev "
+            f"{rec['flops_per_device']:.4e}, bytes/dev "
+            f"{rec['bytes_per_device']:.4e}, collectives "
+            f"{colls['total_bytes']:.4e} B in {colls['total_count']} ops "
+            f"({ {k: v for k, v in colls.items() if k.endswith('_count')} }), "
+            f"memory: arguments {mem['argument_size_in_bytes']} B, temp "
+            f"{mem['temp_size_in_bytes']} B, peak "
+            f"{mem['peak_size_in_bytes']} B; H100 terms: compute "
+            f"{terms['compute_s']:.4e} s, memory (traced) "
+            f"{terms['memory_s']:.4e} s, memory (analytic) "
+            f"{terms['memory_s_h100_est']:.4e} s, collective "
+            f"{terms['collective_s']:.4e} s, dominant "
+            f"{terms['dominant_h100']}, roofline fraction "
+            f"{terms['roofline_fraction_h100']:.4f}; "
+            f"extrapolated {rec['extrapolated'] is not None}; trace "
+            f"{rec['compile_s']} s, done at {wall:.1f} s")
+        recs.append(rec)
+    return recs
+
+
+def mesh_path(dev) -> dict:
+    """Phase 35: qwen2-0.5b as published (bf16), prefill 8 x 512 and 8
+    decode steps, with no mesh and then with its parameters placed on a
+    (1, 1) mesh of a world-size-1 NCCL group, the same weights (seed 0);
+    tokens, prefill logits and launches must be equal.  Returns the placed
+    run's launches of B3 and B2 (each count set to 0 just before that run,
+    read just after)."""
+    import contextlib
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import is_dtensor, tree_map, use_mesh
+    from repro_torch.kernels.decode_attention import decode_attention_bhd
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models import model as M
+
+    cfg = get_config("qwen2-0.5b")
+    B, S, N = 8, 512, 8
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    full = lambda t: t.full_tensor() if is_dtensor(t) else t  # noqa: E731
+
+    def run(mesh):
+        model = M.Model(cfg, generator=torch.Generator(dev).manual_seed(0),
+                        device=dev)
+        with (use_mesh(mesh) if mesh is not None
+              else contextlib.nullcontext()):
+            if mesh is not None:
+                M.place_params(model)
+                if not all(is_dtensor(p) for p in model.parameters()):
+                    fail("place_params left a parameter unplaced")
+            model.prefill(toks[:, :64])                    # warm-up
+            torch.cuda.synchronize()
+            flash_attention_bhsd.launches = decode_attention_bhd.launches = 0
+            t0 = time.perf_counter()
+            logits, cache = model.prefill(toks)
+            logits = full(logits)
+            cache = M.grow_cache(tree_map(full, cache), cfg, B, S + N)
+            if mesh is not None:
+                cache = M.place_tree(cache, M.cache_shardings(
+                    cfg, M.cache_specs(cfg, B, S + N)))
+            tok = logits[:, -1, :cfg.vocab_size].argmax(-1).to(
+                torch.int32)[:, None]
+            out = [tok]
+            for i in range(N):
+                step, cache = model.decode_step(tok, cache, S + i)
+                tok = full(step)[:, 0, :cfg.vocab_size].argmax(-1).to(
+                    torch.int32)[:, None]
+                out.append(tok)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        launches = {"flash": flash_attention_bhsd.launches,
+                    "decode": decode_attention_bhd.launches}
+        del model, cache
+        torch.cuda.empty_cache()
+        return torch.cat(out, 1), logits, launches, wall
+
+    plain = run(None)
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=0, world_size=1, device_id=torch.device(
+                                "cuda", torch.cuda.current_device()))
+    try:
+        placed = run(make_debug_mesh((1, 1), ("data", "model")))
+    finally:
+        dist.destroy_process_group()
+    same_tokens = torch.equal(plain[0], placed[0])
+    same_logits = torch.equal(plain[1], placed[1])
+    log(f"qwen2-0.5b placed on a (1, 1) NCCL mesh: tokens equal "
+        f"{same_tokens}, prefill logits equal {same_logits} (max abs diff "
+        f"{(plain[1].float() - placed[1].float()).abs().max().item():.3g}), "
+        f"launches {placed[2]} (no mesh {plain[2]}); wall of the prefill "
+        f"and {N} steps {placed[3]:.3f} s (no mesh {plain[3]:.3f} s)")
+    want = {"flash": 24, "decode": 24 * N}
+    if not (same_tokens and placed[2] == plain[2] == want):
+        fail(f"the placed model path differs from the unplaced one: tokens "
+             f"{same_tokens}, launches {placed[2]} vs {plain[2]} (want "
+             f"{want})")
+    return placed[2]
+
+
+def local_kernels(dev, mesh_launches: dict, scan_launches: int) -> list:
+    """Phase 36: B3 and B2 at qwen2-0.5b's and B4 at falcon-mamba-7b's
+    shapes on one rank of pod_16x16 (module docstring)."""
+    import torch
+
+    from repro_torch.configs import CELLS_BY_NAME, get_config
+    from repro_torch.kernels.mamba_scan import (
+        mamba1_scan, mamba1_scan_reference)
+    from repro_torch.models.attention import head_layout
+    tp = dp = 16
+    qwen = get_config("qwen2-0.5b")
+    lay = head_layout(qwen.n_heads, qwen.n_kv_heads, qwen.head_dim, tp)
+    pre, dec = CELLS_BY_NAME["prefill_32k"], CELLS_BY_NAME["decode_32k"]
+    # prefill: each rank its hp/tp query heads and the g/tp kv groups
+    # expanded for them; decode: the cache on its slots (kv heads 2 do not
+    # divide tp), every query head over the rank's slots
+    log(f"qwen2-0.5b at tp {tp}: {lay}")
+    out = [time_flash(dev, mesh_launches, pre.global_batch // dp,
+                      pre.seq_len, lay.hp // tp, lay.g // tp, lay.d_head,
+                      plain=flash_plain_chunked),
+           time_decode(dev, mesh_launches, dec.global_batch // dp,
+                       dec.seq_len // tp, H=lay.hp, KV=lay.kv_store,
+                       D=lay.d_head, with_lse=True)]
+
+    falcon = get_config("falcon-mamba-7b")
+    B, T = pre.global_batch // dp, pre.seq_len
+    Di, N = falcon.ssm.expand * falcon.d_model // tp, falcon.ssm.d_state
+    g = torch.Generator(dev).manual_seed(36)
+
+    def normal(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    c = dict(x=normal(B, T, Di),
+             dt=torch.nn.functional.softplus(normal(B, T, Di)),
+             Bt=normal(B, T, N), Ct=normal(B, T, N),
+             A=-torch.exp(0.3 * normal(Di, N)))
+    run = lambda fn, t=T: fn(c["x"][:, :t], c["dt"][:, :t],  # noqa: E731
+                             c["Bt"][:, :t], c["Ct"][:, :t], c["A"])
+    name = f"mamba_scan_f32_b{B}_t{T}_di{Di}"
+    cut = 2048
+    err = _scan_err(run(mamba1_scan, cut), run(mamba1_scan_reference, cut),
+                    f"{name} (first {cut} steps)")
+    ms = cuda_ms(lambda: run(mamba1_scan))
+    plain_ms = cuda_ms(lambda: run(mamba1_scan_reference), iters=1,
+                       warmup=1)
+    nbytes = 4 * (3 * B * T * Di + 2 * B * T * N + Di * N + B * Di * N)
+    flops = 7 * B * T * Di * N + B * T * Di
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    dev_ms = _device_ms_per_call(lambda: run(mamba1_scan), calls=5)
+    log(f"{name}: max abs err {err:.3g} over the first {cut} steps, kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {nbytes} B, {flops} flop), achieved "
+        f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time per call "
+        f"(profiler): kernel {dev_ms}")
+    out.append({"name": name, "route": "cuda",
+                "source": "src/repro_torch/csrc/mamba_scan.cu",
+                "replaces": "src/repro/kernels/mamba_scan.py:48",
+                "launches": scan_launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, "library_ms": None})
+    return out
 
 
 if __name__ == "__main__":

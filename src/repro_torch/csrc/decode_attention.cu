@@ -49,6 +49,11 @@
 //   A row with no kept slot has m = -1e30 in every split, so the merge
 //   gives the uniform mean of V; a state with m = -inf (a warp whose slots
 //   all lie past S) weighs exactly 0.
+// * Log-sum-exp: given an lse buffer, the block that writes a row's output
+//   also writes the float32 natural log-sum-exp of its masked, scaled
+//   scores, ln 2 (m + log2 l) from the merged base-2 state (-1e30 + ln l
+//   for a row with no kept slot, as the plain version gives), so that
+//   results over disjoint slot ranges can be merged by the caller.
 //
 // Layout: q is [B, H, D] and the caches [B, KV, S, D], all with element
 // strides given by the caller (last one 1), so the model's [B, S, KV, D]
@@ -70,6 +75,7 @@ constexpr int kThreads = 128;
 constexpr int kWarps = 4;
 constexpr int kRows = 16;             // query heads per block (row group)
 constexpr float kMasked = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 template <typename T, int D>
 struct Cfg {
@@ -94,6 +100,7 @@ struct DaArgs {
   const int32_t* cache_len;
   const int32_t* positions;
   void* out;
+  float* lse;                   // [B, H] or null
   float* part;                  // [grid.x, n_splits, 16, D + 2] if n_splits > 1
   int* counters;                // [grid.x], zero between calls
   int H, KV, S, row_groups, tiles_per_split;
@@ -103,6 +110,11 @@ struct DaArgs {
 };
 
 __device__ __forceinline__ float neg_inf() { return __int_as_float(0xff800000); }
+
+// The natural log-sum-exp of a row from its base-2 state (m, l), l >= 1.
+__device__ __forceinline__ float natural_lse(float m, float l) {
+  return (m == kMasked ? kMasked : m * kLn2) + logf(l);
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -433,6 +445,7 @@ decode_attention_kernel(const DaArgs a) {
                                      row0) * D;
   float* part = a.part + static_cast<int64_t>(blockIdx.x) * n_splits * kRows *
                              (D + 2);
+  const int64_t lse_row = static_cast<int64_t>(b) * a.H + g * r + row0;
   for (int c = tid; c < nrows * D; c += kThreads) {
     const int row = c / D, d = c % D;
     float mb = neg_inf();
@@ -448,6 +461,7 @@ decode_attention_kernel(const DaArgs a) {
     }
     if (n_splits == 1) {
       store(out + row * D + d, ob / (lb == 0.f ? 1.f : lb));
+      if (d == 0 && a.lse) a.lse[lse_row + row] = natural_lse(mb, lb);
     } else {
       float* rec = part + (split * kRows + row) * (D + 2);
       rec[2 + d] = ob;
@@ -485,6 +499,7 @@ decode_attention_kernel(const DaArgs a) {
       og += e * __ldcg(rec + 2 + d);
     }
     store(out + row * D + d, og / (lg == 0.f ? 1.f : lg));
+    if (d == 0 && a.lse) a.lse[lse_row + row] = natural_lse(mg, lg);
   }
 }
 
@@ -543,12 +558,13 @@ int da_tile_slots(int dtype, int D) {
 }
 
 // dtype 0: fp32, 1: bf16.  Strides are in elements; window <= 0: none.
+// lse: null, or [B, H] floats (contiguous) for each row's log-sum-exp.
 // n_splits is capped to the number of tiles; part must hold
 // B * KV * ceil(r / 16) * n_splits * 16 * (D + 2) floats when n_splits > 1,
 // and counters B * KV * ceil(r / 16) ints, zero.
 int da_launch(int dtype, const void* q, const void* k, const void* v,
               const void* cache_len, const void* positions, void* out,
-              void* part, void* counters, int B, int H, int KV, int S, int D,
+              void* lse, void* part, void* counters, int B, int H, int KV, int S, int D,
               int n_splits, int64_t q_sb, int64_t q_sh, int64_t k_sb,
               int64_t k_sh, int64_t k_ss, int64_t v_sb, int64_t v_sh,
               int64_t v_ss, int64_t cl_sb, int64_t pos_sb, int window,
@@ -557,7 +573,7 @@ int da_launch(int dtype, const void* q, const void* k, const void* v,
   if (r < 1 || r > 3 * kRows) return static_cast<int>(cudaErrorInvalidValue);
   const DaArgs a{q, k, v, static_cast<const int32_t*>(cache_len),
                  static_cast<const int32_t*>(positions), out,
-                 static_cast<float*>(part), static_cast<int*>(counters), H,
+                 static_cast<float*>(lse), static_cast<float*>(part), static_cast<int*>(counters), H,
                  KV, S, (r + kRows - 1) / kRows, 0, q_sb, q_sh, k_sb, k_sh,
                  k_ss, v_sb, v_sh, v_ss, cl_sb, pos_sb, window, scale_log2};
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -129,8 +129,8 @@ def load_library() -> ctypes.CDLL:
     lib.fab_wgmma_launch.restype = ci
     lib.fab_wgmma_rows.argtypes = [ci]
     lib.fab_wgmma_rows.restype = ci
-    lib.da_launch.argtypes = [ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci,
-                              ci, ci, ci, *[i64] * 10, ci, ctypes.c_float, vp]
+    lib.da_launch.argtypes = [ci, *[vp] * 9, ci, ci, ci, ci, ci, ci,
+                              *[i64] * 10, ci, ctypes.c_float, vp]
     lib.da_launch.restype = ci
     lib.da_tile_slots.argtypes = [ci, ci]
     lib.da_tile_slots.restype = ci
@@ -218,3 +218,17 @@ def split_scratch(owner: str, device, n_counters: int, n_part: int) -> tuple:
                            device=device)
     SCRATCH[owner, device.index] = counters, part
     return counters, part
+
+
+# -- the dry-run's trace: kernels on meta tensors ------------------------------
+
+META_SINKS: list = []
+
+
+def on_meta(flops: int, nbytes: int) -> None:
+    """Book one kernel call that a wrapper made on ``meta`` tensors, where
+    nothing runs (the dry-run's trace): the operations the kernel does and
+    the bytes it must move, each input read once and each output written
+    once, to every sink in ``META_SINKS`` (``launch.dryrun.LocalCost``)."""
+    for sink in META_SINKS:
+        sink(flops, nbytes)

@@ -79,9 +79,12 @@ def choose_splits(blocks: int, S: int, tile: int, n_sm: int) -> int:
 
 
 def decode_attention_reference(q, k_cache, v_cache, cache_len, positions, *,
-                               window: Optional[int] = None):
+                               window: Optional[int] = None,
+                               with_lse: bool = False):
     """Plain PyTorch, term for term ``repro.kernels.ref.decode_attention_ref``:
-    q [B, H, D]; caches [B, KV, S, D]; cache_len [B]; positions [B, S]."""
+    q [B, H, D]; caches [B, KV, S, D]; cache_len [B]; positions [B, S].
+    With ``with_lse`` also the float32 log-sum-exp [B, H] of each row's
+    masked, scaled scores."""
     B, H, D = q.shape
     KV = k_cache.shape[1]
     qg = q.reshape(B, KV, H // KV, D).float()
@@ -93,7 +96,10 @@ def decode_attention_reference(q, k_cache, v_cache, cache_len, positions, *,
     s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
     a = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrs,bgsd->bgrd", a, v_cache.float())
-    return o.reshape(B, H, D).to(q.dtype)
+    o = o.reshape(B, H, D).to(q.dtype)
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H)
 
 
 def decode_attention_split_reference(q, k_cache, v_cache, cache_len,
@@ -188,24 +194,52 @@ def _sm_count(index: int) -> int:
 
 
 def decode_attention_bhd(q, k_cache, v_cache, cache_len, positions, *,
-                         window: Optional[int] = None):
+                         window: Optional[int] = None,
+                         with_lse: bool = False):
     """q: [B, H, D]; caches: [B, KV, S, D] (float32 or bfloat16);
     cache_len: [B] i32; positions: [B, S] i32 (absolute position per slot,
-    -1 = never valid).  Returns [B, H, D] in q's dtype.
+    -1 = never valid).  Returns [B, H, D] in q's dtype; with ``with_lse``
+    (out, lse), ``lse`` the float32 log-sum-exp [B, H] of each row's
+    masked, scaled scores, by which results over disjoint slot ranges
+    merge.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel,
     split as ``choose_splits`` says, and add one to
-    ``decode_attention_bhd.launches``."""
+    ``decode_attention_bhd.launches``; meta tensors give empty results
+    and book the kernel's cost (``_meta_call``)."""
+    if q.device.type == "meta":
+        return _meta_call(q, k_cache, with_lse)
     if q.device.type == "cpu":
         return decode_attention_reference(q, k_cache, v_cache, cache_len,
-                                          positions, window=window)
+                                          positions, window=window,
+                                          with_lse=with_lse)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
-    return _launch(q, k_cache, v_cache, cache_len, positions, window=window)
+    return _launch(q, k_cache, v_cache, cache_len, positions, window=window,
+                   with_lse=with_lse)
+
+
+def _meta_call(q, k_cache, with_lse):
+    """``decode_attention_bhd`` on ``meta`` tensors (the dry-run's trace,
+    where nothing runs): empty results, and the kernel's cost booked by
+    ``_build.on_meta``: 4 D operations a slot and head (it scores every
+    slot, masked or not), q, the caches, lengths and positions read and
+    the output (and lse) written once."""
+    from repro_torch.kernels._build import on_meta
+    B, H, D = q.shape
+    KV, S = k_cache.shape[1], k_cache.shape[2]
+    on_meta(4 * D * H * B * S,
+            q.element_size() * 2 * B * (H + S * KV) * D + 4 * B * (1 + S)
+            + (4 * B * H if with_lse else 0))
+    out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    if not with_lse:
+        return out
+    return out, torch.empty((B, H), dtype=torch.float32, device=q.device)
 
 
 def _launch(q, k_cache, v_cache, cache_len, positions, *,
-            window: Optional[int] = None, n_splits: Optional[int] = None):
+            window: Optional[int] = None, n_splits: Optional[int] = None,
+            with_lse: bool = False):
     """Launch the kernel on CUDA tensors.  ``n_splits`` (None: the rule of
     ``choose_splits``) lets the tests reach split counts the rule does not
     pick at their shapes."""
@@ -225,10 +259,13 @@ def _launch(q, k_cache, v_cache, cache_len, positions, *,
                                    blocks * n_splits * ROW_GROUP * (D + 2)
                                    if n_splits > 1 else 0)
     out = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, H), dtype=torch.float32, device=q.device)
+           if with_lse else None)
     err = launch(
         index, lib.da_launch, DTYPES[q.dtype], q.data_ptr(),
         k_cache.data_ptr(), v_cache.data_ptr(), cache_len.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), part.data_ptr(),
+        positions.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(), part.data_ptr(),
         counters.data_ptr(), B, H, KV, S, D, int(n_splits), q.stride(0),
         q.stride(1), *k_cache.stride()[:3], *v_cache.stride()[:3],
         cache_len.stride(0), positions.stride(0),
@@ -237,7 +274,7 @@ def _launch(q, k_cache, v_cache, cache_len, positions, *,
     if err:
         raise RuntimeError(f"decode_attention launch failed: cudaError {err}")
     decode_attention_bhd.launches += 1
-    return out
+    return out if lse is None else (out, lse)
 
 
 counted(decode_attention_bhd)

@@ -166,6 +166,50 @@ def _as4(t: torch.Tensor) -> torch.Tensor:
     return t.unsqueeze(0) if t.dim() == 3 else t
 
 
+def kept_pairs(S: int, causal: bool, window: Optional[int]) -> int:
+    """The (query, key) pairs of an S-token sequence that the mask keeps
+    (``_masked_scores``' rule): the kernels' work is this many pairs."""
+    if window is None or window >= S:
+        return S * (S + 1) // 2 if causal else S * S
+    w = window
+    if causal:
+        return w * (w + 1) // 2 + (S - w) * w
+    return w * S + (S - 1 + w) * (S - w) // 2
+
+
+def _meta_forward(q, k, causal, window, with_lse):
+    """``flash_attention_bhsd`` on ``meta`` tensors (the dry-run's trace,
+    where nothing runs): empty results, and the kernel's cost booked by
+    ``_build.on_meta``: 4 D operations a kept pair and head, q, k, v read
+    and the output (and lse) written once."""
+    from repro_torch.kernels._build import on_meta
+    B, H, S, D = _as4(q).shape
+    KV = _as4(k).shape[1]
+    on_meta(4 * D * H * B * kept_pairs(S, causal, window),
+            q.element_size() * 2 * B * S * (H + KV) * D
+            + (4 * B * H * S if with_lse else 0))
+    out4 = _empty_like_input(q)
+    out = out4 if q.dim() == 4 else out4[0]
+    if not with_lse:
+        return out
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    return out, (lse if q.dim() == 4 else lse[0])
+
+
+def _meta_backward(q, k, v, causal, window):
+    """``flash_attention_bwd`` on ``meta`` tensors: empty gradients, and
+    the kernels' cost: 10 D operations a kept pair and head (the scores,
+    P, dP, dS recomputed; dQ, dK, dV), q, k, v, o, do and lse read and
+    dq, dk, dv written once."""
+    from repro_torch.kernels._build import on_meta
+    B, H, S, D = _as4(q).shape
+    KV = _as4(k).shape[1]
+    on_meta(10 * D * H * B * kept_pairs(S, causal, window),
+            q.element_size() * 4 * B * S * (H + KV) * D + 4 * B * H * S)
+    grads = [_empty_like_input(t) for t in (q, k, v)]
+    return tuple(g if q.dim() == 4 else g[0] for g in grads)
+
+
 def _check(q, k, v, window) -> None:
     if q.dim() not in (3, 4) or k.dim() != q.dim() or v.shape != k.shape:
         raise ValueError(f"want q [BH, S, D] or [B, H, S, D] and k, v of the "
@@ -222,7 +266,10 @@ def flash_attention_bhsd(q, k, v, *, causal: bool = True,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel of
     ``route(q.dtype, D)`` and add one to ``flash_attention_bhsd.launches``
-    and to that route's count in ``launches_by_route``."""
+    and to that route's count in ``launches_by_route``; meta tensors give
+    empty results and book the kernel's cost (``_meta_forward``)."""
+    if q.device.type == "meta":
+        return _meta_forward(q, k, causal, window, with_lse)
     if q.device.type == "cpu":
         out = flash_attention_reference(q, k, v, causal=causal, window=window)
         if not with_lse:
@@ -278,12 +325,15 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True,
     v's shapes and dtype (for [B, ., S, D] inputs, [B, ., S, D] views of
     tensors laid out [B, S, ., D], as the model's activations are).
 
-    CPU tensors take ``flash_attention_bwd_reference``; CUDA tensors launch
-    the two kernels (dQ, then dK and dV) of ``bwd_route(q.dtype, D)``:
-    ``csrc/flash_attention_bwd_wgmma.cu`` on the tensor cores, or
-    ``csrc/flash_attention_bwd.cu`` on the CUDA cores; each call adds one
-    to ``flash_attention_bwd.launches`` and to that route's count in
-    ``launches_by_route``."""
+    CPU tensors take ``flash_attention_bwd_reference``; CUDA tensors
+    launch the two kernels (dQ, then dK and dV) of
+    ``bwd_route(q.dtype, D)``: ``csrc/flash_attention_bwd_wgmma.cu`` on
+    the tensor cores, or ``csrc/flash_attention_bwd.cu`` on the CUDA
+    cores; each call adds one to ``flash_attention_bwd.launches`` and to
+    that route's count in ``launches_by_route``.  Meta tensors give empty
+    gradients and book the kernels' cost (``_meta_backward``)."""
+    if q.device.type == "meta":
+        return _meta_backward(q, k, v, causal, window)
     if q.device.type == "cpu":
         return flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
                                              window)

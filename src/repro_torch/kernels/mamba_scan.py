@@ -180,6 +180,28 @@ def _checked(x, dt, Bt, Ct, A, h0, h_out) -> tuple:
     return checked_once(_CHECKED, check, x, dt, Bt, Ct, A, h0, h_out)
 
 
+def _meta_forward(x, Bt, h0, h_out, with_checkpoints):
+    """``mamba1_scan`` on ``meta`` tensors (the dry-run's trace, where
+    nothing runs): empty results (``h_out`` itself when given), and the
+    kernel's cost booked by ``_build.on_meta``: 7 operations a (step,
+    channel, state) and 1 a (step, channel); x, dt, B_t, C_t, A, h0 read
+    and y, h_last and the checkpoints written once, all float32."""
+    from repro_torch.kernels._build import on_meta
+    B, T, Di = x.shape
+    N = Bt.shape[-1]
+    states = (2 if h0 is not None else 1) + (
+        n_checkpoints(T) if with_checkpoints else 0)
+    on_meta(7 * B * T * Di * N + B * T * Di,
+            4 * (3 * B * T * Di + 2 * B * T * N + Di * N
+                 + states * B * Di * N))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    y = torch.empty((B, T, Di), **f32)
+    h = torch.empty((B, Di, N), **f32) if h_out is None else h_out
+    if not with_checkpoints:
+        return y, h
+    return y, h, torch.empty((B, n_checkpoints(T), Di, N), **f32)
+
+
 def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None, *,
                 with_checkpoints: bool = False):
     """x, dt: [B, T, Di]; Bt, Ct: [B, T, N]; A: [Di, N]; h0: [B, Di, N] or
@@ -190,9 +212,12 @@ def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None, *,
     float32), which the backward pass reads.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel and
-    add one to ``mamba1_scan.launches``.  B_t and C_t may be strided slices
-    of one projection (unit last stride); other inputs are made
-    contiguous."""
+    add one to ``mamba1_scan.launches``; meta tensors give empty results
+    and book the kernel's cost (``_meta_forward``).  B_t and C_t may be
+    strided slices of one projection (unit last stride); other inputs are
+    made contiguous."""
+    if x.device.type == "meta":
+        return _meta_forward(x, Bt, h0, h_out, with_checkpoints)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")
@@ -234,6 +259,25 @@ def mamba1_scan(x, dt, Bt, Ct, A, h0=None, h_out=None, *,
 counted(mamba1_scan)
 
 
+def _meta_backward(x, Bt, h0, dh_last):
+    """``mamba1_scan_bwd`` on ``meta`` tensors: empty gradients, and the
+    kernels' cost: 20 operations a (step, channel, state); x, dt, dy,
+    B_t, C_t, A, the checkpoints, h0 and dh_last read and dx, ddt, dB, dC,
+    dA and dh0 written once, all float32."""
+    from repro_torch.kernels._build import on_meta
+    B, T, Di = x.shape
+    N = Bt.shape[-1]
+    states = (n_checkpoints(T) + 1 + (h0 is not None)
+              + (dh_last is not None))
+    on_meta(20 * B * T * Di * N,
+            4 * (5 * B * T * Di + 4 * B * T * N + 2 * Di * N
+                 + states * B * Di * N))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    return (torch.empty((B, T, Di), **f32), torch.empty((B, T, Di), **f32),
+            torch.empty((B, T, N), **f32), torch.empty((B, T, N), **f32),
+            torch.empty((Di, N), **f32), torch.empty((B, Di, N), **f32))
+
+
 def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last, ckpt=None):
     """The backward pass of ``mamba1_scan``: its inputs (``h0`` may be
     None), ``dy`` [B, T, Di] and ``dh_last`` [B, Di, N] (None: zeros), all
@@ -246,7 +290,10 @@ def mamba1_scan_bwd(x, dt, Bt, Ct, A, h0, dy, dh_last, ckpt=None):
     ``h0`` and does not read ``ckpt``; CUDA tensors launch the kernels of
     ``csrc/mamba_scan_bwd.cu`` (the scan backward, then the fixed-order
     sums of its per-block partials) and add one to
-    ``mamba1_scan_bwd.launches``."""
+    ``mamba1_scan_bwd.launches``; meta tensors give empty gradients and
+    book the kernels' cost (``_meta_backward``)."""
+    if x.device.type == "meta":
+        return _meta_backward(x, Bt, h0, dh_last)
     if not x.is_cuda:
         if x.device.type != "cpu":
             raise ValueError(f"no kernel for device {x.device}")

@@ -18,6 +18,18 @@ tests hold against the reference's jnp path.  ``cross_attention`` (the
 decoder's queries over whisper's encoder context at prefill) is plain
 torch ops, as in the reference; at decode the model reads the cross K/V
 through ``decode_attention``.
+
+Under a mesh (``repro_torch.dist.sharding``) the tensors are DTensors and
+the shard sites are the reference's: queries on heads
+(``project_q``), the kv groups that ``flash_attention`` and
+``cross_attention`` attend on heads, their outputs on heads.  A kv head
+duplicated ``r`` times by the layout (``r > 1`` only when the kv heads do
+not divide ``tp``) is expanded to its ``G`` groups before it is sharded,
+as the reference's ``expand_kv`` does, so that each rank holds the kv
+groups of its own query heads.  ``write_slot`` writes a decode step's K/V
+into a cache in place, on each rank's shard of it: a cache sharded on its
+slots (kv heads that do not divide ``tp``, the reference's
+``cache_axes``) is written only by the rank that holds the slot.
 """
 from __future__ import annotations
 
@@ -30,7 +42,16 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.dist.sharding import pad_to_multiple
+from repro_torch.dist.sharding import (
+    current as mesh_ctx,
+    is_dtensor,
+    pad_to_multiple,
+    place,
+    shard,
+    shard_index,
+    shard_map,
+    spec_of,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import Norm, dense_init
 
@@ -83,6 +104,28 @@ def head_layout(n_heads: int, n_kv_heads: int, d_head: int,
     )
 
 
+def attn_param_axes(layout: HeadLayout, *, bias: bool = False,
+                    qk_norm: bool = False):
+    """Logical sharding axes of ``Attention``'s parameters (the
+    reference's ``attn_param_axes``): heads on ``tp``, kv heads only when
+    they divide it."""
+    kv_ax = "tp" if layout.kv_store % mesh_ctx().tp == 0 else None
+    p = {
+        "wq": (None, "tp", None),
+        "wk": (None, kv_ax, None),
+        "wv": (None, kv_ax, None),
+        "wo": ("tp", None, None),
+    }
+    if bias:
+        p["bq"] = ("tp", None)
+        p["bk"] = (kv_ax, None)
+        p["bv"] = (kv_ax, None)
+    if qk_norm:
+        p["q_norm"] = {"scale": (None,)}
+        p["k_norm"] = {"scale": (None,)}
+    return p
+
+
 class Attention(nn.Module):
     """Q/K/V/O projections (weights ``wq [d, Hp, Dh]``, ``wk``/``wv``
     ``[d, KVs, Dh]``, ``wo [Hp, Dh, d]``), optional QKV bias and qk-norm,
@@ -125,7 +168,7 @@ class Attention(nn.Module):
             q = q + self.bq.to(q.dtype)
         if hasattr(self, "q_norm"):
             q = self.q_norm(q)
-        return q
+        return shard(q, "dp", None, "tp", None)
 
     def project_kv(self, x):
         B, S, d = x.shape
@@ -144,17 +187,30 @@ class Attention(nn.Module):
         return o.reshape(B, S, -1) @ self.wo.reshape(-1, self.wo.shape[-1])
 
 
+def expand_kv(k, layout: HeadLayout):
+    """[B, S, KVs, Dh] -> the duplicated group layout [B, S, G, Dh]."""
+    if layout.r == 1:
+        return k
+    B, S, kvs, dh = k.shape
+    return k[:, :, :, None].expand(B, S, kvs, layout.r, dh).reshape(
+        B, S, kvs * layout.r, dh)
+
+
 def flash_attention(q, k, v, layout: HeadLayout, *, causal: bool,
                     window: Optional[int] = None):
     """q: [B, S, Hp, Dh]; k, v: [B, S, KVs, Dh].  Returns [B, S, Hp, Dh].
 
     The reference's q-block loop over static kv slices computes the same
-    function; here one kernel call does it (``ops.flash_attention``).  The
-    reference's duplicated kv groups need no copy: query head h reads kv
-    head h // (Hp / KVs) either way."""
-    o = ops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                            v.transpose(1, 2), causal=causal, window=window)
-    return o.transpose(1, 2)
+    function; here one kernel call does it (``ops.flash_attention``).
+    Query head h reads kv head h // (Hp / KVs) either way, so the
+    duplicated kv groups are made (``expand_kv``) only where the layout
+    duplicates (``r > 1``, under a mesh whose ``tp`` the kv heads do not
+    divide), to shard them with their query heads."""
+    kx = shard(expand_kv(k, layout), "dp", None, "tp", None)
+    vx = shard(expand_kv(v, layout), "dp", None, "tp", None)
+    o = ops.flash_attention(q.transpose(1, 2), kx.transpose(1, 2),
+                            vx.transpose(1, 2), causal=causal, window=window)
+    return shard(o.transpose(1, 2), "dp", None, "tp", None)
 
 
 def cross_attention(q, k, v, layout: HeadLayout):
@@ -165,6 +221,13 @@ def cross_attention(q, k, v, layout: HeadLayout):
     takes only ``T == S``).  Scores in the inputs' dtype, then float32,
     scaled by 1/sqrt(Dh); softmax in float32; the weights cast back to v's
     dtype for the product with v.  Returns [B, S, Hp, Dh]."""
+    if is_dtensor(q):
+        # per head: each rank its query heads and their kv groups
+        kx = shard(expand_kv(k, layout), "dp", None, "tp", None)
+        vx = shard(expand_kv(v, layout), "dp", None, "tp", None)
+        spec = spec_of(shard(q, "dp", None, "tp", None))
+        return shard_map(lambda *t: cross_attention(*t, layout), mesh_ctx(
+            ).mesh, (spec, spec, spec), spec)(q, kx, vx)
     B, S, hp, dh = q.shape
     kvs = k.shape[2]
     qg = q.reshape(B, S, kvs, hp // kvs, dh)
@@ -192,3 +255,27 @@ def decode_attention(q, k_cache, v_cache, cache_len, cache_positions,
                              cache_positions, window=window)
     return o.reshape(B, 1, layout.hp, dh)
 
+
+
+def write_slot(cache, new, idx) -> None:
+    """Write ``new`` [B, 1, KVs, Dh] into slot ``idx`` ([1] int64, a device
+    tensor) of ``cache`` [B, Sc, KVs, Dh], in place.  A DTensor cache is
+    written shard by shard, ``new`` laid out as the cache is: on a cache
+    sharded on its slots, the rank that holds slot ``idx`` writes it and
+    every other rank writes back what it holds (no host sync, no branch
+    on the slot)."""
+    if not is_dtensor(cache):
+        cache.index_copy_(1, idx, new.to(cache.dtype))
+        return
+    spec = spec_of(cache)
+    local = cache.to_local()
+    val = place(new.to(cache.dtype), (spec[0], None) + spec[2:]).to_local()
+    if spec[1] is None:
+        local.index_copy_(1, idx, val)
+        return
+    n = local.shape[1]
+    lo = idx - shard_index(spec[1]) * n
+    mine = (lo >= 0) & (lo < n)
+    at = lo.clamp(0, n - 1)
+    local.index_copy_(1, at, torch.where(mine, val,
+                                         local.index_select(1, at)))

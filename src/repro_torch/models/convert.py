@@ -12,11 +12,13 @@ moe layers' ``moe.router``, ``shared_mlp.*`` and ``shared_gate`` alike);
 top-level leaves, zamba2's one ``shared_block`` and whisper's
 ``enc_norm`` among them, keep their path.  Each leaf keeps the port's
 dtype (the ssm layers' ``D``, ``dt_bias`` and ``A_log`` and the moe
-router are float32 in a bf16 model, as in the reference).  Only the
-no-mesh, ``tp = 1`` layout is carried.  ``params_to_reference`` goes the
-other way, restacking the periods: the port's parameters, or their
-``.grad``s, as the reference's tree, so that the tests can compare
-gradients leaf by leaf with ``jax.grad``'s.
+router are float32 in a bf16 model, as in the reference).  Under an
+active mesh the model takes that mesh's layout (heads and experts padded
+for its ``tp``), as the reference's tree does when it is built under the
+same mesh; ``Model.place_params`` then lays it out.
+``params_to_reference`` goes the other way, restacking the periods: the
+port's parameters, or their ``.grad``s, as the reference's tree, so that
+the tests can compare gradients leaf by leaf with ``jax.grad``'s.
 """
 from __future__ import annotations
 

@@ -65,11 +65,30 @@ XLA.  Weights are drawn from an explicit
 ``torch.Generator`` on an explicit device, by default the card (raising
 without one); ``repro_torch.models.convert`` carries the reference's
 weights across instead.
+
+Under a mesh (``repro_torch.dist.sharding.use_mesh``) the head layout and
+the padded experts follow its ``tp``, as the reference's do, and
+``param_axes`` / ``param_shardings`` and ``cache_axes`` /
+``cache_shardings`` give the reference's spec trees (keyed by the
+reference's paths, a stage's leaves with their leading period axis).
+``place_params`` lays the model's parameters out by them, as DTensors
+(a period's parameter takes its stage leaf's spec without the period
+entry), and the entry points then run on DTensors: the reference's shard
+sites (``embed_lookup``'s vocab-sharded gather, ``lm_logits``, the
+residual stream after each attention layer and at the embeddings) are
+``shard`` calls, the kernels run on each rank's shards
+(``kernels.ops``), and plain tensors made inside a call (positions,
+rotary angles, masks) count as replicated.  Every layer, the ssm layers
+and decode steps too, ends with the residual stream on ``("dp", "sp",
+None)``: DTensor keeps a row-parallel product's sum pending until an op
+needs it, and left pending it can make the next layer's product gather
+its weights (where XLA, laying out the whole step, takes the sum).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -78,16 +97,33 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.dist.sharding import (
+    coordinate,
+    current as mesh_ctx,
+    is_dtensor,
+    place,
+    pmax,
+    psum,
+    replicated_inputs,
+    shard,
+    shard_index,
+    shard_map,
+    spec_for,
+    spec_of,
+    tree_map,
+)
 from repro_torch.kernels._graph import GraphCache, storage_key
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
     Attention,
     HeadLayout,
+    attn_param_axes,
     cross_attention,
     decode_attention,
     flash_attention,
     head_layout,
+    write_slot,
 )
 from repro_torch.models.layers import (
     MLP,
@@ -178,10 +214,12 @@ def build_plan(cfg: ModelConfig) -> List[Stage]:
 
 
 def _layout(cfg: ModelConfig) -> Optional[HeadLayout]:
-    """The head layout, or None for an attention-free model."""
+    """The head layout under the active mesh's ``tp``, or None for an
+    attention-free model."""
     if cfg.n_heads == 0:
         return None
-    return head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim)
+    return head_layout(cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                       mesh_ctx().tp)
 
 
 # ---------------------------------------------------------------------------
@@ -212,8 +250,9 @@ class AttnLayer(nn.Module):
                                    bias=cfg.qkv_bias)
         if spec.moe:
             self.norm2 = Norm(cfg.norm, d, dtype, device)
-            self.moe = moe_mod.MoE(moe_mod.moe_dims(cfg.moe, d), dtype,
-                                   device, generator)
+            self.moe = moe_mod.MoE(moe_mod.moe_dims(cfg.moe, d,
+                                                    mesh_ctx().tp),
+                                   dtype, device, generator)
             if cfg.moe.n_shared_experts:
                 self.shared_mlp = MLP(
                     "swiglu", d, cfg.moe.n_shared_experts
@@ -260,19 +299,22 @@ class AttnLayer(nn.Module):
         q, k, v = self._qkv(x, rot)
         o = flash_attention(q, k, v, self.layout, causal=self.spec.causal,
                             window=self.spec.window)
-        x = x + self.attn.output_proj(o)
+        # the output projection leaves a pending sum over the tensor axis:
+        # taken here, or DTensor gathers the next matrix's weight and runs
+        # that product whole on every rank
+        x = shard(x + self.attn.output_proj(o), "dp", "sp", None)
         if self.spec.cross:
             xq = self.cross.project_q(self.norm_x(x))
             xk, xv = self.cross.project_kv(enc_out)
-            x = x + self.cross.output_proj(cross_attention(xq, xk, xv,
-                                                           self.layout))
+            x = shard(x + self.cross.output_proj(cross_attention(
+                xq, xk, xv, self.layout)), "dp", "sp", None)
         x, aux = self._ffn(x)
+        x = shard(x, "dp", "sp", None)
         if not want_cache:
             return x, None, aux
         w = self.spec.window
         if w is not None and S > w:
-            k = torch.roll(k[:, -w:], S % w, dims=1)
-            v = torch.roll(v[:, -w:], S % w, dims=1)
+            k, v = _ring(k[:, -w:], S % w), _ring(v[:, -w:], S % w)
         entry = {"k": k, "v": v}
         if self.spec.cross:
             entry["xk"], entry["xv"] = xk, xv
@@ -286,18 +328,26 @@ class AttnLayer(nn.Module):
         Sc = kc.shape[1]
         ring = self.spec.window is not None and Sc <= self.spec.window
         idx, cache_pos = step.slots(Sc, ring)
-        kc.index_copy_(1, idx, k.to(kc.dtype))
-        vc.index_copy_(1, idx, v.to(vc.dtype))
+        write_slot(kc, k, idx)
+        write_slot(vc, v, idx)
         o = decode_attention(q, kc, vc, step.valid, cache_pos, self.layout,
                              window=self.spec.window)
-        x = x + self.attn.output_proj(o)
+        x = shard(x + self.attn.output_proj(o), "dp", "sp", None)
         if self.spec.cross:
             xk, xv = entry["xk"], entry["xv"]
             valid, pos = step.every_slot(xk.shape[1])
             xq = self.cross.project_q(self.norm_x(x))
-            x = x + self.cross.output_proj(decode_attention(
-                xq, xk, xv, valid, pos, self.layout))
-        return self._ffn(x)[0]
+            x = shard(x + self.cross.output_proj(decode_attention(
+                xq, xk, xv, valid, pos, self.layout)), "dp", "sp", None)
+        return shard(self._ffn(x)[0], "dp", "sp", None)
+
+
+def _ring(t, shift: int):
+    """``torch.roll(t, shift, dims=1)`` as two slices and a cat, ops that
+    DTensor can lay out (it has no rule for roll)."""
+    if shift == 0:
+        return t
+    return torch.cat([t[:, -shift:], t[:, :-shift]], dim=1)
 
 
 class SsmLayer(nn.Module):
@@ -315,13 +365,14 @@ class SsmLayer(nn.Module):
         """Prefill from scratch: (y, {conv, ssm} | None, None), the final
         states (and no aux loss)."""
         y, state = self.ssm(self.norm(x))
-        return x + y, (state if want_cache else None), None
+        x = shard(x + y, "dp", "sp", None)
+        return x, (state if want_cache else None), None
 
     def decode(self, x, rot, entry, step: "DecodeStep"):
         """One token from the states in ``entry``, which it overwrites with
         the new states, in place."""
         y, _ = self.ssm(self.norm(x), entry, in_place=True)
-        return x + y
+        return shard(x + y, "dp", "sp", None)
 
 
 class DecodeStep:
@@ -378,14 +429,40 @@ class DecodeStep:
 # ---------------------------------------------------------------------------
 
 
+def embed_lookup(table, tokens):
+    """Token embeddings [B, S, d] from ``table`` [Vp, d].  Under a mesh
+    with ``tp > 1`` the table is sharded on the vocabulary: each rank
+    gathers the rows it holds (zero for the others) and the rows are
+    summed over ``"model"`` (the reference's masked gather + psum)."""
+    ctx = mesh_ctx()
+    if not ctx.active or ctx.tp == 1:
+        return F.embedding(tokens, table)
+
+    def body(tbl, tok):
+        v_loc = tbl.shape[0]
+        idx = tok - coordinate("model") * v_loc
+        ok = (idx >= 0) & (idx < v_loc)
+        y = F.embedding(idx.clamp(0, v_loc - 1), tbl)
+        return psum(torch.where(ok[..., None], y, torch.zeros_like(y)),
+                    "model")
+
+    bspec = spec_for(tokens.shape, "dp")[0]
+    return shard_map(body, ctx.mesh, (("model", None), (bspec, None)),
+                     (bspec, None, None))(table, tokens)
+
+
 def lm_logits(x, table):
-    """x: [B, S, d]; table: [Vp, d] -> logits [B, S, Vp] in x's dtype."""
-    return x @ table.T
+    """x: [B, S, d]; table: [Vp, d] -> logits [B, S, Vp] in x's dtype,
+    sharded on the vocabulary under a mesh."""
+    return shard(x @ table.T, "dp", None, "tp")
 
 
 def _ce_chunk(x, table, targets, vocab_size: int):
     """Sum over one chunk's tokens of logsumexp(logits) - logit[target], in
-    float32, vocabulary padding masked to -1e30."""
+    float32, vocabulary padding masked to -1e30.  DTensors run on each
+    rank's tokens and vocabulary shard (``_ce_chunk_sharded``)."""
+    if is_dtensor(x):
+        return _ce_chunk_sharded(x, table, targets, vocab_size)
     logits = lm_logits(x, table).float()
     v = logits.shape[-1]
     if v > vocab_size:
@@ -394,6 +471,39 @@ def _ce_chunk(x, table, targets, vocab_size: int):
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, targets.long()[..., None])[..., 0]
     return (logz - gold).sum()
+
+
+def _ce_chunk_sharded(x, table, targets, vocab_size: int):
+    """``_ce_chunk`` on shards: each rank takes the logits of its tokens
+    over its vocabulary shard; the log-sum-exp and the target's logit are
+    reduced over the table's tensor axes (the max with no gradient, which
+    cancels from it) and the tokens' sum over their data axes."""
+    ctx = mesh_ctx()
+    vspec = spec_of(table)[0]
+    tp = () if vspec is None else ((vspec,) if isinstance(vspec, str)
+                                   else vspec)
+    bspec = spec_for(x.shape, "dp")[0]
+    dp = () if bspec is None else ((bspec,) if isinstance(bspec, str)
+                                   else bspec)
+
+    def body(x, tbl, tgt):
+        v_loc = tbl.shape[0]
+        lo = shard_index(vspec) * v_loc
+        logits = (x @ tbl.T).float()                        # [b, T, V_loc]
+        vid = lo + torch.arange(v_loc, device=logits.device)
+        logits = torch.where(vid >= vocab_size,
+                             torch.full_like(logits, -1e30), logits)
+        m = pmax(logits.detach().amax(-1), tp)
+        logz = m + torch.log(psum(torch.exp(logits - m[..., None]).sum(-1),
+                                  tp))
+        idx = tgt.long() - lo
+        ok = (idx >= 0) & (idx < v_loc)
+        gold = logits.gather(-1, idx.clamp(0, v_loc - 1)[..., None])[..., 0]
+        gold = psum(torch.where(ok, gold, torch.zeros_like(gold)), tp)
+        return psum((logz - gold).sum(), dp)
+
+    return shard_map(body, ctx.mesh, ((bspec, None, None), (vspec, None),
+                                      (bspec, None)), ())(x, table, targets)
 
 
 def chunked_ce(x, table, targets, vocab_size: int, n_chunks: int = 8):
@@ -420,6 +530,16 @@ def chunked_ce(x, table, targets, vocab_size: int, n_chunks: int = 8):
 # ---------------------------------------------------------------------------
 # the model
 # ---------------------------------------------------------------------------
+
+
+def _on_mesh(fn):
+    """Run a ``Model`` entry point where plain tensors count as replicated
+    next to DTensors (``replicated_inputs``; nothing without a mesh)."""
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        with replicated_inputs():
+            return fn(*args, **kwargs)
+    return run
 
 
 class Model(nn.Module):
@@ -519,11 +639,11 @@ class Model(nn.Module):
         """Token embeddings; whisper's decoder adds the sinusoidal
         embedding of positions ``start + arange(S)`` (``start`` is a
         device tensor at decode: no host sync)."""
-        x = F.embedding(tokens, self.embed)
+        x = embed_lookup(self.embed, tokens)
         if self.cfg.family == "audio":
             pos = start + torch.arange(tokens.shape[1], device=self.device)
             x = x + sinusoid_embed(pos, self.cfg.d_model).to(x.dtype)[None]
-        return x
+        return shard(x, "dp", "sp", None)
 
     def _run_period(self, stage: Stage, period, x, rot, *, want_cache: bool,
                     enc_out=None, remat: bool = False):
@@ -554,12 +674,14 @@ class Model(nn.Module):
         T = frames.shape[1]
         x = frames + sinusoid_positions(T, self.cfg.d_model,
                                         frames.device).to(frames.dtype)[None]
+        x = shard(x, "dp", "sp", None)
         stage = self.encoder_stage
         for period in self.stages[stage.name]:
             x, _, _ = self._run_period(stage, period, x, None,
                                        want_cache=False, remat=remat)
         return self.enc_norm(x)
 
+    @_on_mesh
     def backbone(self, tokens, extras=None, *, want_cache: bool = False,
                  remat: bool = False):
         """Embeddings -> stages -> final norm.  Returns (hidden [B, S, d],
@@ -604,6 +726,7 @@ class Model(nn.Module):
         x = self.final_norm(x)
         return x, (cache if want_cache else None), aux
 
+    @_on_mesh
     def loss_fn(self, batch, *, remat: bool = False, unroll: bool = False,
                 aux_weight: float = 0.01, ce_chunks: int = 8):
         """The training loss of ``batch`` ({"tokens", "targets"} [B, S] and
@@ -619,17 +742,20 @@ class Model(nn.Module):
                         self.cfg.vocab_size, n_chunks=ce_chunks)
         return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
+    @_on_mesh
     def forward(self, tokens, extras=None):
         """Full forward returning dense logits [B, S, Vp]."""
         return self._logits(self.backbone(tokens, extras)[0])
 
     @torch.no_grad()
+    @_on_mesh
     def prefill(self, tokens, extras=None):
         """Returns (last-token logits [B, 1, Vp], cache)."""
         x, cache, _ = self.backbone(tokens, extras, want_cache=True)
         return self._logits(x[:, -1:]), cache
 
     @torch.no_grad()
+    @_on_mesh
     def decode_step(self, tokens, cache, cache_len, extras=None):
         """One decode step: tokens [B, 1] against a cache with ``cache_len``
         valid entries (int or 0-d tensor).  Writes the new K/V and ssm
@@ -790,3 +916,193 @@ def grow_cache(cache, cfg: ModelConfig, batch: int, seq: int):
                 new[tuple(slice(0, s) for s in old.shape)] = old
                 out[stage][key][n] = new
     return out
+
+
+# ---------------------------------------------------------------------------
+# sharding: the reference's spec trees, and the placed model
+# ---------------------------------------------------------------------------
+
+
+def _norm_axes(cfg: ModelConfig):
+    if cfg.norm == "nonparametric_ln":
+        return {}
+    return {k: (None,) for k in
+            ("scale", "bias")[:1 if cfg.norm == "rmsnorm" else 2]}
+
+
+def _layer_axes(spec: LayerSpec, cfg: ModelConfig, layout):
+    """One layer's parameter axes (the reference's ``_layer_axes``)."""
+    a: Dict[str, Any] = {}
+    if spec.kind == "ssm":
+        a["norm"] = _norm_axes(cfg)
+        a["ssm"] = ssm_mod.ssm_param_axes(
+            ssm_mod.ssm_dims(cfg.ssm, cfg.d_model))
+        return a
+    a["norm1"] = _norm_axes(cfg)
+    a["attn"] = attn_param_axes(layout, bias=cfg.qkv_bias,
+                                qk_norm=cfg.qk_norm)
+    if spec.cross:
+        a["norm_x"] = _norm_axes(cfg)
+        a["cross"] = attn_param_axes(layout, bias=cfg.qkv_bias)
+    if spec.moe:
+        a["norm2"] = _norm_axes(cfg)
+        a["moe"] = moe_mod.moe_param_axes()
+        if cfg.moe.n_shared_experts:
+            a["shared_mlp"] = {"w_gate": (None, "tp"), "w_up": (None, "tp"),
+                               "w_down": ("tp", None)}
+            a["shared_gate"] = (None, None)
+    elif spec.mlp is not None:
+        a["norm2"] = _norm_axes(cfg)
+        a["mlp"] = (
+            {"w_gate": (None, "tp"), "w_up": (None, "tp"),
+             "w_down": ("tp", None)}
+            if spec.mlp in ("swiglu", "geglu") else
+            {"w_up": (None, "tp"), "b_up": ("tp",), "w_down": ("tp", None),
+             "b_down": (None,)})
+    return a
+
+
+def _stack_axes(tree):
+    """A replicated period axis in front of every axes tuple."""
+    return tree_map(lambda a: (None,) + a, tree)
+
+
+def param_axes(cfg: ModelConfig):
+    """The logical sharding axes of every parameter, as the reference's
+    ``param_axes`` tree (a stage's leaves with their period axis)."""
+    layout = _layout(cfg)
+    axes: Dict[str, Any] = {"embed": ("tp", None),
+                            "final_norm": _norm_axes(cfg)}
+    if not cfg.tie_embeddings:
+        axes["lm_head"] = ("tp", None)
+    if cfg.family == "hybrid":
+        axes["shared_block"] = _layer_axes(
+            LayerSpec(kind="shared_attn", mlp=cfg.mlp), cfg, layout)
+    for stage in build_plan(cfg):
+        axes[stage.name] = {
+            f"layer{li}": _stack_axes(_layer_axes(spec, cfg, layout))
+            for li, spec in enumerate(stage.specs)
+            if spec.kind != "shared_attn"}
+    if cfg.family == "audio" and cfg.encdec is not None:
+        axes["enc_norm"] = _norm_axes(cfg)
+    return axes
+
+
+def _reference_path(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+    """A parameter name -> (its reference tree path, its period or None):
+    ``stages.<stage>.<p>.rest`` is leaf ``<stage>.rest``, period ``p``."""
+    parts = tuple(name.split("."))
+    if parts[0] == "stages":
+        return (parts[1],) + parts[3:], int(parts[2])
+    return parts, None
+
+
+def _get(tree, path):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def param_shapes(cfg: ModelConfig):
+    """The reference's parameter tree of shapes (``torch.Size``; a stage's
+    leaves with their period axis), under the active mesh's layout."""
+    model = Model(cfg, device="meta")
+    periods = {s.name: s.n_periods for s in model.plan}
+    tree: Dict[str, Any] = {}
+    for name, p in model.named_parameters():
+        path, per = _reference_path(name)
+        shape = p.shape if per is None else torch.Size(
+            (periods[path[0]], *p.shape))
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = shape
+    return tree
+
+
+def _to_spec(ax, shape):
+    ax = tuple(ax) + (None,) * (len(shape) - len(ax))
+    return spec_for(shape, *ax)
+
+
+def param_shardings(cfg: ModelConfig, params_shape=None):
+    """The spec of every parameter leaf (the reference's
+    ``param_shardings``, a spec tuple for each NamedSharding), or None per
+    leaf with no mesh.  ``params_shape`` defaults to ``param_shapes``."""
+    shapes = params_shape if params_shape is not None else param_shapes(cfg)
+    active = mesh_ctx().active
+    return tree_map(lambda ax, shape: _to_spec(ax, tuple(shape))
+                     if active else None, param_axes(cfg), shapes)
+
+
+def port_specs(model: "Model", tree) -> Dict[str, Any]:
+    """A tree keyed by the reference's paths (``param_shardings``,
+    ``zero1_shardings``) as ``{parameter name: spec}`` for ``model``: a
+    period's parameter takes its stage leaf's spec without the period
+    entry."""
+    out = {}
+    for name, _ in model.named_parameters():
+        path, per = _reference_path(name)
+        spec = _get(tree, path)
+        out[name] = spec if spec is None or per is None else spec[1:]
+    return out
+
+
+def place_params(model: "Model", shardings=None) -> "Model":
+    """Lay ``model``'s parameters out on the active mesh as DTensors, by
+    ``shardings`` (``param_shardings``' tree by default).  Each rank holds
+    the same global weights, and keeps its shard of them (no
+    communication).  Returns ``model``."""
+    if not mesh_ctx().active:
+        return model
+    specs = port_specs(model, shardings if shardings is not None
+                       else param_shardings(model.cfg))
+    for name, p in list(model.named_parameters()):
+        mod_name, _, leaf = name.rpartition(".")
+        mod = model.get_submodule(mod_name) if mod_name else model
+        mod._parameters[leaf] = nn.Parameter(
+            place(p.detach(), specs[name]), requires_grad=p.requires_grad)
+    return model
+
+
+def _cache_entry_axes(spec: LayerSpec, cfg: ModelConfig, layout):
+    """One layer's cache axes (the reference's ``_entry_axes``): kv heads
+    on ``tp`` when they divide it, else the slots."""
+    if spec.kind == "ssm":
+        dims = ssm_mod.ssm_dims(cfg.ssm, cfg.d_model)
+        if dims.version == 1:
+            return {"conv": ("dp", None, "tp"), "ssm": ("dp", "tp", None)}
+        return {"conv": ("dp", None, "tp"),
+                "ssm": ("dp", "tp", None, None)}
+    kv_ax = ("tp" if layout is not None
+             and layout.kv_store % mesh_ctx().tp == 0 else None)
+    seq_ax = None if kv_ax == "tp" else "tp"
+    e = {"k": ("dp", seq_ax, kv_ax, None), "v": ("dp", seq_ax, kv_ax, None)}
+    if spec.cross:
+        e["xk"] = ("dp", None, kv_ax, None)
+        e["xv"] = ("dp", None, kv_ax, None)
+    return e
+
+
+def cache_axes(cfg: ModelConfig):
+    """The cache tree's logical axes (the reference's ``cache_axes``)."""
+    layout = _layout(cfg)
+    return {stage.name: {
+        f"layer{li}": _stack_axes(_cache_entry_axes(spec, cfg, layout))
+        for li, spec in enumerate(stage.specs)}
+        for stage in build_plan(cfg) if not stage.encoder}
+
+
+def cache_shardings(cfg: ModelConfig, specs):
+    """The spec of every cache leaf of ``specs`` (``cache_specs``' tree),
+    or None per leaf with no mesh."""
+    active = mesh_ctx().active
+    return tree_map(lambda ax, leaf: _to_spec(ax, tuple(leaf.shape))
+                     if active else None, cache_axes(cfg), specs)
+
+
+def place_tree(tree, shardings):
+    """Every tensor of ``tree`` laid out by its spec in ``shardings`` (a
+    tree of the same keys; a None spec leaves the tensor as it is)."""
+    return tree_map(lambda t, spec: t if spec is None else place(t, spec),
+                     tree, shardings)

@@ -9,14 +9,20 @@ order.  The batched products are plain matrix products, which the
 reference leaves to XLA outside any Pallas kernel; here they are
 ``torch.bmm``.
 
-One card means ``tp = 1``, so the port has the reference's local path
-(``_moe_local``) only.  Its two ``shard_map`` bodies, ``_moe_a2a_body``
-(buckets exchanged by all-to-all between expert-parallel ranks) and
-``_moe_replicated_body`` (tokens replicated, each rank its own experts,
-partial outputs summed), come with sharding (ROADMAP.md, Queue 1).
-Experts are zero-padded to a multiple of the expert-parallel degree
-(``moe_dims(..., ep)``) and the padded experts' router logits masked to
--1e30, as in the reference.
+Three execution paths share routing, buckets, the experts' FFN and the
+combine, as in the reference: ``_moe_local`` with no mesh (and, on a mesh
+with ``tp == 1``, on tokens replicated over it); and two ``shard_map``
+bodies with the experts on the tensor axis (expert parallelism):
+``_moe_a2a_body``, tokens sharded on the sequence over ``"model"``, each
+rank's capacity buckets exchanged with an all-to-all so that every rank
+runs its own experts over every rank's tokens, and back; and
+``_moe_replicated_body`` (decode and short sequences), tokens replicated
+over ``"model"``, each rank running its own experts' buckets and the
+partial outputs summed.  Both average the aux loss over the mesh.
+``moe_apply`` takes the a2a body when ``S % tp == 0 and S >= tp`` and the
+batch on the data axes when ``B % dp == 0``.  Experts are zero-padded to
+a multiple of the expert-parallel degree (``moe_dims(..., ep)``) and the
+padded experts' router logits masked to -1e30, as in the reference.
 
 Nothing here reads a value back to the host: the capacity comes from
 shapes (``_capacity``), and routing, buckets and combine are tensor ops of
@@ -46,7 +52,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import MoEConfig
-from repro_torch.dist.sharding import pad_to_multiple
+from repro_torch.dist.sharding import (
+    all_to_all,
+    axis_index,
+    current as mesh_ctx,
+    pad_to_multiple,
+    place,
+    pmean,
+    psum,
+    shard_map,
+)
 from repro_torch.models.layers import _normal, dense_init
 
 NEG_INF = -1e30
@@ -72,6 +87,17 @@ def moe_dims(cfg: MoEConfig, d_model: int, ep: int = 1) -> MoEDims:
         d_ff=cfg.d_ff_expert,
         capacity_factor=cfg.capacity_factor,
     )
+
+
+def moe_param_axes():
+    """Logical sharding axes of ``MoE``'s parameters: experts on ``tp``,
+    the router replicated."""
+    return {
+        "router": (None, None),
+        "w_gate": ("tp", None, None),
+        "w_up": ("tp", None, None),
+        "w_down": ("tp", None, None),
+    }
 
 
 class MoE(nn.Module):
@@ -215,10 +241,80 @@ def _moe_local(params: Dict[str, torch.Tensor], x, dims: MoEDims):
     return _combine(y_e, ge, tok, N, d, dims.top_k), aux
 
 
+# which body ``moe_apply`` last took under a mesh, counted (the tests read
+# it to show that both bodies run)
+BODY_CALLS = {"local": 0, "a2a": 0, "replicated": 0}
+
+
+def _moe_a2a_body(router, w_gate, w_up, w_down, x, dims: MoEDims,
+                  axis_names=()):
+    """Per rank inside ``shard_map``; x: [b_loc, s_loc, d].  The buckets
+    [E_pad, C, d] go out by expert (each rank gets its E_loc experts'
+    rows from every rank, [E_loc, tp*C, d]) and come back by rank."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    gates, idx, aux = _route(router, xt, dims)
+    C = _capacity(b * s, dims)
+    xe, ge, tok = _bucket(xt, gates, idx, C, dims)
+    xe = all_to_all(xe, "model", split_axis=0, concat_axis=1)
+    y_e = _expert_ffn(w_gate, w_up, w_down, xe)
+    y_e = all_to_all(y_e, "model", split_axis=1, concat_axis=0)
+    y = _combine(y_e, ge, tok, b * s, d, dims.top_k)
+    return y.reshape(b, s, d), pmean(aux, axis_names)
+
+
+def _moe_replicated_body(router, w_gate, w_up, w_down, x, dims: MoEDims,
+                         axis_names=()):
+    """Tokens replicated over ``"model"``; each rank runs the buckets of
+    its own experts (rows ``rank * e_loc`` on) and the partial outputs are
+    summed over ``"model"``."""
+    b, s, d = x.shape
+    xt = x.reshape(b * s, d)
+    gates, idx, aux = _route(router, xt, dims)
+    C = _capacity(b * s, dims)
+    xe, ge, tok = _bucket(xt, gates, idx, C, dims)
+    e_loc = w_gate.shape[0]
+    lo = axis_index("model") * e_loc
+    y_e = _expert_ffn(w_gate, w_up, w_down, xe[lo:lo + e_loc])
+    y = _combine(y_e, ge[lo:lo + e_loc], tok[lo:lo + e_loc], b * s, d,
+                 dims.top_k)
+    return psum(y, "model").reshape(b, s, d), pmean(aux, axis_names)
+
+
 def moe_apply(params: Dict[str, torch.Tensor], x,
               dims: MoEDims) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: [B, S, d] -> (y [B, S, d], aux loss scalar): the local path, the
-    reference's at ``tp == 1``."""
+    """x: [B, S, d] -> (y [B, S, d], aux loss scalar).  No mesh: the local
+    path; a mesh: the a2a or the replicated body (module docstring)."""
+    ctx = mesh_ctx()
     B, S, d = x.shape
-    y, aux = _moe_local(params, x.reshape(B * S, d), dims)
-    return y.reshape(B, S, d), aux
+    if not ctx.active:
+        y, aux = _moe_local(params, x.reshape(B * S, d), dims)
+        return y.reshape(B, S, d), aux
+    names = ("router", "w_gate", "w_up", "w_down")
+    if ctx.tp == 1:
+        # the reference's local path over the global tokens
+        BODY_CALLS["local"] += 1
+
+        def local(*a):
+            y, aux = _moe_local(dict(zip(names, a[:4])),
+                                a[4].reshape(B * S, d), dims)
+            return y.reshape(B, S, d), aux
+        rep = (None, None, None)
+        return shard_map(local, ctx.mesh, ((None, None), rep, rep, rep, rep),
+                         (rep, ()))(*(params[n] for n in names), x)
+    bspec = (ctx.dp_axes if len(ctx.dp_axes) > 1 else ctx.dp_axes[0]) \
+        if B % ctx.dp == 0 and ctx.dp > 1 else None
+    seq = S % ctx.tp == 0 and S >= ctx.tp
+    body = _moe_a2a_body if seq else _moe_replicated_body
+    BODY_CALLS["a2a" if seq else "replicated"] += 1
+    w_spec = ("model", None, None)
+    xspec = (bspec, "model" if seq else None, None)
+    fn = shard_map(
+        lambda *a: body(*a, dims=dims,
+                        axis_names=tuple(ctx.mesh.mesh_dim_names)),
+        ctx.mesh, ((None, None), w_spec, w_spec, w_spec, xspec), (xspec, ()))
+    y, aux = fn(*(params[n] for n in names), x)
+    # the output back on the residual stream's layout (the reference's
+    # constraint at the layer's end, one op later): a gradient sharded on
+    # the sequence would reach views that flatten it
+    return (place(y, (bspec, None, None)) if seq else y), aux

@@ -20,6 +20,13 @@ reference's chunked SSD as torch einsums, with no kernel (the JAX package
 has none for it); its three-operand einsums are split into two-operand
 ones, which sum in another order.  Decode is the same mix at S = 1 from
 the carried ``(conv, ssm)`` state.
+
+Under a mesh the channels (``d_inner``; Mamba-2's heads) lie on the
+tensor axis, as in the reference (``ssm_param_axes``).  The projections
+are DTensor products; the regions that act per channel run on each
+rank's channels (``shard_map``): the causal conv, Mamba-1's scan (in
+``kernels.ops``) and Mamba-2's whole SSD, whose ``cumsum`` runs along time
+within a head.  No region gathers the channels.
 """
 from __future__ import annotations
 
@@ -31,6 +38,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import SSMConfig
+from repro_torch.dist.sharding import current as mesh_ctx
+from repro_torch.dist.sharding import (
+    is_dtensor,
+    shard,
+    shard_map,
+    spec_for,
+)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import _normal, dense_init
 
@@ -76,6 +90,25 @@ def _n_chunks(S: int, dims: SSMDims) -> int:
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
+
+
+def ssm_param_axes(dims: SSMDims):
+    """Logical sharding axes of ``Mamba``'s parameters (the reference's
+    ``ssm_param_axes``): channels, or Mamba-2's heads, on ``tp``."""
+    a = {
+        "w_in": (None, "tp"),
+        "conv_w": (None, "tp"),
+        "conv_b": ("tp",),
+        "w_out": ("tp", None),
+        "D": ("tp",),
+        "dt_bias": ("tp",),
+        "A_log": ("tp", None) if dims.version == 1 else ("tp",),
+    }
+    if dims.version == 1:
+        a.update({"w_x": ("tp", None), "w_dt": (None, "tp")})
+    else:
+        a.update({"w_bc": (None, None), "w_dt_head": (None, "tp")})
+    return a
 
 
 class Mamba(nn.Module):
@@ -133,7 +166,17 @@ class Mamba(nn.Module):
 
 def causal_conv(x, conv_w, conv_b, conv_state=None):
     """x: [B, S, di]; conv_w: [K, di].  Returns (silu(y), new_state
-    [B, K-1, di]): the taps summed in float32, in the reference's order."""
+    [B, K-1, di]): the taps summed in float32, in the reference's order.
+    DTensor inputs run on each rank's channels."""
+    if is_dtensor(x):
+        xs = spec_for(x.shape, "dp", None, "tp")
+        specs = [xs, (None, xs[2]), (xs[2],)]
+        args = [x, conv_w, conv_b]
+        if conv_state is not None:
+            specs.append(xs)
+            args.append(conv_state)
+        return shard_map(causal_conv, mesh_ctx().mesh, tuple(specs),
+                         (xs, xs))(*args)
     B, S, di = x.shape
     K = conv_w.shape[0]
     if conv_state is None:
@@ -157,12 +200,13 @@ def mamba1_mix(params: Mapping, x_conv, dims: SSMDims, h0=None, h_out=None):
     (y [B, S, di] in x_conv's dtype, h_last [B, di, n])."""
     n, rank = dims.d_state, dims.dt_rank
     A = -torch.exp(params["A_log"].float())                    # [di, n]
-    xbc = x_conv @ params["w_x"]                           # [B, S, rank+2n]
+    # the product summed over the channels' shards, then sliced
+    xbc = shard(x_conv @ params["w_x"], "dp", None, None)  # [B, S, rank+2n]
     dt_low = xbc[..., :rank]
     Bt = xbc[..., rank:rank + n].float()
     Ct = xbc[..., rank + n:].float()
-    dt = F.softplus((dt_low @ params["w_dt"]).float()
-                    + params["dt_bias"])                       # [B, S, di]
+    dt = shard(F.softplus((dt_low @ params["w_dt"]).float()
+                          + params["dt_bias"]), "dp", None, "tp")  # [B, S, di]
     xf = x_conv.float()
     y, h = ops.mamba_scan(xf, dt, Bt, Ct, A, h0, h_out)
     y = y + params["D"] * xf
@@ -179,7 +223,24 @@ def mamba2_mix(params: Mapping, x_conv, dims: SSMDims, h0=None, dt_pre=None,
     """SSD: x_conv [B, S, di] viewed as [B, S, nh, hd]; one decay per head.
     dt_pre [B, S, nh] and bc_pre = (B_t, C_t) [B, S, n] are projected from
     the block input (``mamba_block``), float32.  Returns (y [B, S, di],
-    h_last [B, nh, hd, n])."""
+    h_last [B, nh, hd, n]).  DTensor inputs run on each rank's heads."""
+    if is_dtensor(x_conv):
+        xs = spec_for(x_conv.shape, "dp", None, "tp")
+        hs = (xs[0], xs[2], None, None)
+        specs = [xs, xs, (xs[0], None, None), (xs[0], None, None), (xs[2],),
+                 (xs[2],)]
+        args = [x_conv, dt_pre, *bc_pre, params["A_log"], params["D"]]
+        if h0 is not None:
+            specs.append(hs)
+            args.append(h0)
+
+        def body(x, dt, Bt, Ct, A_log, D, h=None):
+            local = dataclasses.replace(
+                dims, d_inner=x.shape[-1], n_heads=dt.shape[-1])
+            return mamba2_mix({"A_log": A_log, "D": D}, x, local, h0=h,
+                              dt_pre=dt, bc_pre=(Bt, Ct))
+        return shard_map(body, mesh_ctx().mesh, tuple(specs), (xs, hs))(
+            *args)
     B, S, di = x_conv.shape
     nh, hd, n = dims.n_heads, dims.head_dim, dims.d_state
     xh = x_conv.reshape(B, S, nh, hd)
@@ -229,14 +290,18 @@ def mamba_block(params: Mapping, x, dims: SSMDims,
     for the cache.  With ``in_place`` the new states overwrite ``state``'s
     tensors, which are returned (B4 writes the Mamba-1 state there
     itself)."""
-    xz = x @ params["w_in"]
+    xz = shard(x @ params["w_in"], "dp", None, "tp")
     xs, z = xz.chunk(2, dim=-1)                            # [B, S, di] each
+    # the halves on the channels (DTensor re-lays them out: the cut at
+    # di does not fall on a shard boundary of 2 di)
+    xs, z = shard(xs, "dp", None, "tp"), shard(z, "dp", None, "tp")
     conv_state = state["conv"] if state is not None else None
     ssm_state = state["ssm"] if state is not None else None
 
     if dims.version == 2:
         # mamba-2 projects dt/B/C from the block input stream
-        dt = F.softplus((x @ params["w_dt_head"]).float() + params["dt_bias"])
+        dt = shard(F.softplus((x @ params["w_dt_head"]).float()
+                              + params["dt_bias"]), "dp", None, "tp")
         Bt, Ct = (x @ params["w_bc"]).float().chunk(2, dim=-1)
 
     x_conv, conv_state = causal_conv(xs, params["conv_w"], params["conv_b"],

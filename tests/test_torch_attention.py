@@ -12,6 +12,8 @@ bfloat16 (both sides take the same bf16-rounded inputs).
 """
 from __future__ import annotations
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -119,18 +121,28 @@ def test_cpu_wrappers_count_no_launch():
 
 
 def test_wrappers_raise_on_other_devices():
+    """A device with neither a kernel (the card) nor a plain version (the
+    CPU, and meta, where the dry-run traces) raises; meta gives the plain
+    version's shapes."""
+    other = types.SimpleNamespace(device=torch.device("xpu"), is_cuda=False,
+                                  requires_grad=False)
+    with pytest.raises(ValueError, match="no kernel"):
+        flash_attention_bhsd(other, other, other)
+    with pytest.raises(ValueError, match="no kernel"):
+        decode_attention_bhd(other, other, other, other, other)
+    with pytest.raises(ValueError, match="no kernel"):      # B4, via the seam
+        ops.mamba_scan(other, other, other, other, other)
     q = torch.zeros(2, 16, 64, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):
-        flash_attention_bhsd(q, q, q)
-    with pytest.raises(ValueError, match="no kernel"):
-        decode_attention_bhd(q[:, :1], q[:, None], q[:, None],
-                             torch.zeros(2, dtype=torch.int32, device="meta"),
-                             torch.zeros(2, 16, dtype=torch.int32,
-                                         device="meta"))
+    assert flash_attention_bhsd(q, q, q).shape == q.shape
+    assert decode_attention_bhd(
+        q[:, :1], q[:, None], q[:, None],
+        torch.zeros(2, dtype=torch.int32, device="meta"),
+        torch.zeros(2, 16, dtype=torch.int32, device="meta")).shape == (2, 1,
+                                                                         64)
     x = torch.zeros(1, 4, 16, device="meta")
     bc = torch.zeros(1, 4, 8, device="meta")
-    with pytest.raises(ValueError, match="no kernel"):      # B4, via the seam
-        ops.mamba_scan(x, x, bc, bc, torch.zeros(16, 8, device="meta"))
+    y, h = ops.mamba_scan(x, x, bc, bc, torch.zeros(16, 8, device="meta"))
+    assert y.shape == x.shape and h.shape == (1, 16, 8)
 
 
 @pytest.mark.parametrize("tp", (1, 2, 4, 16))

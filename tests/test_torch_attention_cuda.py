@@ -291,6 +291,13 @@ def run_decode_splits(c, n_splits):
     return run_decode(launch_decode, c, n_splits=n_splits)
 
 
+def run_decode_splits_lse(c, n_splits):
+    """``run_decode_splits`` returning (out, lse)."""
+    if n_splits is None:
+        return run_decode(decode_attention_bhd, c, with_lse=True)
+    return run_decode(launch_decode, c, n_splits=n_splits, with_lse=True)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -428,6 +435,27 @@ def test_decode_split_matches_plain_version(cuda_device, dtype, name, case,
         H, KV = c["q"].shape[1], c["k"].shape[1]
         mean = c["v"][-1].float().mean(1)            # [KV, D]
         _check("decode", got[-1], mean.repeat_interleave(H // KV, 0), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+@pytest.mark.parametrize("name,case,n_splits", split_decode_cases(),
+                         ids=[n for n, _, _ in split_decode_cases()])
+def test_decode_lse_matches_plain_version(cuda_device, dtype, name, case,
+                                          n_splits):
+    """B2's log-sum-exp, written by the block that writes each row (one
+    split, or the last of several), against the plain version's; the
+    output is the one the call without it gives, bit for bit."""
+    c = to_torch(case, cuda_device, DTYPES[dtype])
+    out, lse = run_decode_splits_lse(c, n_splits)
+    torch.cuda.synchronize()
+    assert torch.equal(out, run_decode_splits(c, n_splits))
+    want_out, want = run_decode(decode_attention_reference, c, with_lse=True)
+    _check("decode", out, want_out, dtype)
+    assert lse.dtype == torch.float32 and lse.shape == want.shape
+    torch.testing.assert_close(lse, want, **KERNEL_TOLS["decode"][dtype])
+    if case["cache_len"][-1] == 0:        # no kept slot: -1e30 + ln S
+        assert (lse[-1] == -1e30).all()
 
 
 @pytest.mark.cuda

@@ -7,8 +7,8 @@ reference's record (``arch``, ``prefill_cell``, ``decode_cell``,
 ``DeviceModel.from_roofline`` makes of the measured seconds, and
 ``repro_torch.launch.serve --backend emulated --devmodel`` consumes the
 file.  A batch that runs out of device memory is halved and the cut
-recorded; without a card the default device raises, and the CLI's
-compile-driver flags exit with "not yet ported".
+recorded; without a card the default device raises.  (The CLI's
+compile-driver flags are ``tests/test_torch_dryrun.py``'s.)
 """
 from __future__ import annotations
 
@@ -102,13 +102,3 @@ def test_default_device_raises_without_a_card(monkeypatch, tmp_path):
         dryrun.main(["--emit-devmodel", "--arch", "qwen2-0.5b", "--out",
                      str(tmp_path)])
     assert not list(tmp_path.iterdir())
-
-
-@pytest.mark.parametrize("argv", [["--all"], ["--arch", "qwen2-0.5b"],
-                                  ["--arch", "qwen2-0.5b", "--cell",
-                                   "decode_32k"],
-                                  ["--emit-devmodel", "--arch", "qwen2-0.5b",
-                                   "--multi-pod"]])
-def test_the_compile_driver_is_not_ported(argv):
-    with pytest.raises(SystemExit, match="not yet ported"):
-        dryrun.main(argv)

@@ -137,3 +137,29 @@ def test_choose_splits_fills_two_waves():
     # many groups need no split; a one-tile cache cannot split
     assert choose_splits(512, 4096, 64, 132) == 1
     assert choose_splits(1, 40, 64, 132) == 1
+
+
+LSE_CASES = {n.rsplit("-splits", 1)[0]: c for n, c, _ in split_decode_cases()}
+
+
+@pytest.mark.parametrize("name", sorted(LSE_CASES))
+def test_lse_merges_disjoint_slot_ranges(name):
+    """The plain version's log-sum-exp is what merges results over
+    disjoint slot ranges (a cache sharded on its slots): the two halves'
+    outputs, weighted by exp(lse - max), give the whole cache's output,
+    and their log-sum-exps its log-sum-exp (float32, 2e-5)."""
+    c = to_torch(LSE_CASES[name], "cpu", torch.float32)
+    S = c["k"].shape[2]
+    whole, lse = run_decode(decode_attention_reference, c, with_lse=True)
+    parts = []
+    for sl in (slice(0, S // 2), slice(S // 2, S)):
+        half = dict(c, k=c["k"][:, :, sl], v=c["v"][:, :, sl],
+                    positions=c["positions"][:, sl].contiguous())
+        parts.append(run_decode(decode_attention_reference, half,
+                                with_lse=True))
+    m = torch.maximum(parts[0][1], parts[1][1])
+    w = [torch.exp(l_ - m)[..., None] for _, l_ in parts]
+    merged = (w[0] * parts[0][0] + w[1] * parts[1][0]) / (w[0] + w[1])
+    torch.testing.assert_close(merged, whole, atol=2e-5, rtol=2e-5)
+    torch.testing.assert_close(torch.logaddexp(parts[0][1], parts[1][1]),
+                               lse, atol=2e-5, rtol=2e-5)

@@ -334,7 +334,7 @@ def test_shard_is_the_identity_or_raises():
         assert TS.shard(x, "dp", "tp") is x         # every axis size 1
     with TS.use_mesh(_TorchMesh(("data", "model"), (2, 3))):
         assert TS.shard(torch.ones(3, 5), "dp", "tp") is not None
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(TypeError, match="DeviceMesh"):
             TS.shard(x, "dp", "tp")
 
 
