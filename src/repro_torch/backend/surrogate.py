@@ -25,6 +25,15 @@ the same tokens for the same plans:
   write order, so the codes stay identical; fp32 writes of one chunk are
   one scatter.
 
+In a traced run (``repro_torch.profiling``) ``execute`` records four
+trace-only spans of the plan's step, wherever the leaf does their work
+(``profiling.LEAF_SITES``): ``leaf_pack`` builds a step's host-side
+inputs, ``leaf_copy`` copies them to the device, ``leaf_launch`` enqueues
+the device work, ``leaf_read`` reads the sampled tokens back.  No span
+synchronizes, so ``leaf_launch`` is enqueue time and a wait on the device
+shows in ``leaf_copy`` or ``leaf_read``.  Untraced, each span is one
+shared no-op context.
+
 What differs: the pools live on the device, tables are not remapped to a
 compact pool, and a step's query projection and greedy sampling are
 batched on the device with one host read of the sampled ids.  Page
@@ -33,18 +42,23 @@ write to.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import profiling
 from repro_torch.backend.base import PinnedLRU, StepResult
 from repro_torch.core.copyengine import DeferredCopies
 from repro_torch.device import resolve_device
 from repro_torch.serving.scheduler import StepPlan
 
 PARAM_KEYS = ("embed", "wq", "wk", "wv", "wo")
+
+# every leaf span of an untraced execute
+_UNTRACED = contextlib.nullcontext()
 
 
 def draw_params(*, vocab: int, n_heads: int, n_kv_heads: int,
@@ -145,6 +159,8 @@ class PagedSurrogateBackend:
         # req_id -> tokens in cache (see base.PinnedLRU for the aging story)
         self._seq_lens = PinnedLRU(pinned=self._swap_pinned)
         self._last_wall = 0.0
+        # (profiler, step, phase) while a traced execute runs
+        self._trace = None
 
     # -- projections ---------------------------------------------------------
 
@@ -157,6 +173,15 @@ class PagedSurrogateBackend:
         v = (e @ self._wv).view(-1, self.n_kv_heads, self.head_dim)
         return k, v
 
+    def _span(self, site: str):
+        """The leaf span ``site`` of the plan ``execute`` runs, or the
+        shared no-op context when it is not traced."""
+        trace = self._trace
+        if trace is None:
+            return _UNTRACED
+        prof, step, phase = trace
+        return prof.span(site, step=step, phase=phase)
+
     def _write(self, chunks: Sequence[Tuple[List[int], int, Sequence[int]]]
                ) -> None:
         """Write K/V for each ``(table, start, tokens)`` chunk at positions
@@ -165,26 +190,29 @@ class PagedSurrogateBackend:
         toks: List[int] = []
         pages: List[int] = []
         slots: List[int] = []
-        for table, start, tokens in chunks:
-            for i, tok in enumerate(tokens):
-                pos = start + i
-                toks.append(int(tok))
-                pages.append(table[pos // bs])
-                slots.append(pos % bs)
-        if not toks:
-            return
-        idx = torch.tensor([toks, pages, slots],
-                           dtype=torch.int64).to(self.device)
-        k, v = self._kv(idx[0])                                # [n, KV, D]
-        if self.kv_dtype == "int8":
-            for i, (page, slot) in enumerate(zip(pages, slots)):
-                self._quant_store(self.k_pages, self.k_scales, page, slot,
-                                  k[i])
-                self._quant_store(self.v_pages, self.v_scales, page, slot,
-                                  v[i])
-        else:
-            self.k_pages[:, idx[1], idx[2]] = k.transpose(0, 1)
-            self.v_pages[:, idx[1], idx[2]] = v.transpose(0, 1)
+        with self._span("leaf_pack"):
+            for table, start, tokens in chunks:
+                for i, tok in enumerate(tokens):
+                    pos = start + i
+                    toks.append(int(tok))
+                    pages.append(table[pos // bs])
+                    slots.append(pos % bs)
+            if not toks:
+                return
+            host = torch.tensor([toks, pages, slots], dtype=torch.int64)
+        with self._span("leaf_copy"):
+            idx = host.to(self.device)
+        with self._span("leaf_launch"):
+            k, v = self._kv(idx[0])                            # [n, KV, D]
+            if self.kv_dtype == "int8":
+                for i, (page, slot) in enumerate(zip(pages, slots)):
+                    self._quant_store(self.k_pages, self.k_scales, page,
+                                      slot, k[i])
+                    self._quant_store(self.v_pages, self.v_scales, page,
+                                      slot, v[i])
+            else:
+                self.k_pages[:, idx[1], idx[2]] = k.transpose(0, 1)
+                self.v_pages[:, idx[1], idx[2]] = v.transpose(0, 1)
 
     @staticmethod
     def _quant_store(pages: torch.Tensor, scales: torch.Tensor, page: int,
@@ -292,6 +320,17 @@ class PagedSurrogateBackend:
     def execute(self, plan: StepPlan,
                 block_tables: Optional[Dict[int, List[int]]] = None
                 ) -> StepResult:
+        prof = profiling.active()
+        if prof is None or not prof.trace:
+            return self._execute(plan, block_tables)
+        self._trace = (prof, plan.step_id, plan.phase)
+        try:
+            return self._execute(plan, block_tables)
+        finally:
+            self._trace = None
+
+    def _execute(self, plan: StepPlan,
+                 block_tables: Optional[Dict[int, List[int]]]) -> StepResult:
         t0 = time.perf_counter()
         tables = block_tables if block_tables is not None \
             else plan.block_tables
@@ -351,7 +390,8 @@ class PagedSurrogateBackend:
         rows: List[tuple] = []
         for rid, start, n in plan.prefill:
             table = tables.get(rid, [])
-            toks = [int(t) for t in plan.new_tokens.get(rid, [0] * n)]
+            with self._span("leaf_pack"):
+                toks = [int(t) for t in plan.new_tokens.get(rid, [0] * n)]
             if not toks:              # defensive: degenerate empty chunk
                 self._track(rid, start)
                 continue
@@ -367,18 +407,24 @@ class PagedSurrogateBackend:
         row data, one read of the sampled ids."""
         if not rows:
             return {}
-        nb_max = max(max(len(t) for _, _, _, t in rows), 1)
-        host = np.full((len(rows), 2 + nb_max), -1, np.int32)
-        for i, (_, tok, seq_len, table) in enumerate(rows):
-            host[i, 0] = tok
-            host[i, 1] = seq_len
-            host[i, 2:2 + len(table)] = table
-        packed = torch.from_numpy(host).to(self.device)
-        tok = packed[:, 0].long()
-        sl = packed[:, 1].contiguous()
-        bt = packed[:, 2:].contiguous()
-        q = (self._emb(tok) @ self._wq).view(-1, self.n_heads, self.head_dim)
-        nxt = self._attend(q, bt, sl).argmax(dim=-1).tolist()
+        with self._span("leaf_pack"):
+            nb_max = max(max(len(t) for _, _, _, t in rows), 1)
+            host = np.full((len(rows), 2 + nb_max), -1, np.int32)
+            for i, (_, tok, seq_len, table) in enumerate(rows):
+                host[i, 0] = tok
+                host[i, 1] = seq_len
+                host[i, 2:2 + len(table)] = table
+        with self._span("leaf_copy"):
+            packed = torch.from_numpy(host).to(self.device)
+        with self._span("leaf_launch"):
+            tok = packed[:, 0].long()
+            sl = packed[:, 1].contiguous()
+            bt = packed[:, 2:].contiguous()
+            q = (self._emb(tok) @ self._wq).view(-1, self.n_heads,
+                                                 self.head_dim)
+            ids = self._attend(q, bt, sl).argmax(dim=-1)
+        with self._span("leaf_read"):
+            nxt = ids.tolist()
         return {rid: nxt[i] for i, (rid, _, _, _) in enumerate(rows)}
 
     # -- multi-step macro-plans (docs/multi_step.md) --------------------

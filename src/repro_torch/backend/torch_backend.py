@@ -125,18 +125,19 @@ class TorchBackend(PagedSurrogateBackend):
             # the kernel's dequant-on-load path
             return super()._decode_multi(rids, tables, start, first,
                                          budgets, eos, k)
-        rows = len(rids)
-        rows_p = _pow2_at_least(rows, 2)
-        nb_p = _pow2_at_least(max(max(len(tables[rid]) for rid in rids), 1),
-                              2)
-        host = np.full(rows_p * (nb_p + 4), -1, np.int32)
-        bt = host[:rows_p * nb_p].reshape(rows_p, nb_p)
-        meta = host[rows_p * nb_p:].reshape(4, rows_p)
-        meta[:3] = 0              # padding rows: start 0, token 0, budget 0
-        for i, rid in enumerate(rids):
-            bt[i, :len(tables[rid])] = tables[rid]
-            meta[:, i] = (start[rid], first[rid], budgets[rid],
-                          -1 if eos[rid] is None else eos[rid])
+        with self._span("leaf_pack"):
+            rows = len(rids)
+            rows_p = _pow2_at_least(rows, 2)
+            nb_p = _pow2_at_least(
+                max(max(len(tables[rid]) for rid in rids), 1), 2)
+            host = np.full(rows_p * (nb_p + 4), -1, np.int32)
+            bt = host[:rows_p * nb_p].reshape(rows_p, nb_p)
+            meta = host[rows_p * nb_p:].reshape(4, rows_p)
+            meta[:3] = 0          # padding rows: start 0, token 0, budget 0
+            for i, rid in enumerate(rids):
+                bt[i, :len(tables[rid])] = tables[rid]
+                meta[:, i] = (start[rid], first[rid], budgets[rid],
+                              -1 if eos[rid] is None else eos[rid])
         width = max(self.max_steps, k)
         if self.graphs is None:
             entry, st = None, _LoopState(rows_p, nb_p, width, self.device)
@@ -147,16 +148,19 @@ class TorchBackend(PagedSurrogateBackend):
                     self._wk, self._wv, self._wo)),
                 lambda: _LoopState(rows_p, nb_p, width, self.device))
             st = entry.state
-        st.packed.copy_(torch.from_numpy(host))
-        st.tok.copy_(st.tok0)
-        st.alive.fill_(True)
-        st.s.zero_()
-        if entry is None:
-            for _ in range(k):
-                self._loop_step(st)
-        else:
-            self.graphs.run(entry, lambda: self._loop_step(st), k)
-        out = st.out[:k].tolist()             # [k][toks, emits][rows_p]
+        with self._span("leaf_copy"):
+            st.packed.copy_(torch.from_numpy(host))
+        with self._span("leaf_launch"):
+            st.tok.copy_(st.tok0)
+            st.alive.fill_(True)
+            st.s.zero_()
+            if entry is None:
+                for _ in range(k):
+                    self._loop_step(st)
+            else:
+                self.graphs.run(entry, lambda: self._loop_step(st), k)
+        with self._span("leaf_read"):
+            out = st.out[:k].tolist()         # [k][toks, emits][rows_p]
         steps: List[Dict[int, int]] = []
         for s in range(k):
             row = {rid: out[s][0][i]

@@ -301,8 +301,6 @@ def _engine_core(cfg: EngineConfig, in_q, out_q, stats_q, ring_name: str,
     writer.enqueue(StepPlan(-1, [], [], []).encode())
     stats_q.put({
         "role": "engine",
-        "enqueue_wall": [s.wall_s for s in writer.stats],
-        "enqueue_spins": [s.spins for s in writer.stats],
         "sched_cost": sched_costs,
         "barrier_wall": barrier_waits,
         "payload_bytes": payload_sizes,
@@ -375,7 +373,6 @@ def _worker(cfg: EngineConfig, idx: int, ring_name: str, board_name: str,
     stats_q.put({
         "role": f"worker{idx}",
         "dequeue_wall": [s.wall_s for s in reader.stats],
-        "dequeue_spins": [s.spins for s in reader.stats],
         "trace_events": prof.events if prof is not None else [],
         "kernel_launches": _kernel_launches(backend),
         **_graph_books(backend),

@@ -200,7 +200,6 @@ class CompletionBoard:
 class _Endpoint:
     def __init__(self, q: ShmBroadcastQueue):
         self.q = q
-        self.stats: List[OpStats] = []
 
     def _spin_hook(self, spins: int, yield_every: int) -> None:
         if yield_every and spins % yield_every == 0:
@@ -237,9 +236,7 @@ class Writer(_Endpoint):
         self.q._shm.buf[lo:lo + len(payload)] = payload
         w[lay.slot_word(slot, 1)] = len(payload)
         w[lay.slot_word(slot, 0)] = seq           # publish (release)
-        st = OpStats(time.perf_counter() - t0, spins, len(payload))
-        self.stats.append(st)
-        return st
+        return OpStats(time.perf_counter() - t0, spins, len(payload))
 
 
 class Reader(_Endpoint):
@@ -247,6 +244,7 @@ class Reader(_Endpoint):
         super().__init__(q)
         self.idx = idx
         self.seq = 0
+        self.stats: List[OpStats] = []     # the worker reports dequeue_wall
 
     def dequeue(self, *, timeout: float = 60.0,
                 yield_every: int = 0) -> Tuple[bytes, OpStats]:

@@ -48,7 +48,8 @@ free fast path when it is None — an uninstrumented run executes the
 exact same statements it did before this module existed.
 
 Copied from ``src/repro/profiling/__init__.py``, with its imports
-rewritten to ``repro_torch``.
+rewritten to ``repro_torch``; the serving leaf's trace-only spans
+(``LEAF_SITES``) are the port's own.
 """
 from __future__ import annotations
 
@@ -70,6 +71,13 @@ from typing import Dict, Iterable, List, Optional, Tuple
 #   dispatch     — worker plan decode + backend dispatch (worker / DES)
 SITES = ("scheduler", "tokenize", "detokenize", "shm_encode",
          "shm_publish", "copy_submit", "block_alloc", "dispatch")
+
+# Trace-only spans of the serving leaf (``backend.surrogate``), nested in
+# the worker's trace-only ``device`` span: building a step's host-side
+# inputs, copying them to the device, enqueueing the device work, and the
+# blocking read of the sampled tokens.  Not injection sites; the
+# summaries count them as part of the cover set they sit in.
+LEAF_SITES = ("leaf_pack", "leaf_copy", "leaf_launch", "leaf_read")
 
 ENV_INJECT = "REPRO_INJECT"
 ENV_TRACE = "REPRO_TRACE"
@@ -371,20 +379,22 @@ def critical_path_summary(pairs: List[Tuple[str, SpanEvent]],
                           device_site: str = "device") -> Dict[str, dict]:
     """Per-site totals + the share NOT hidden behind device execution.
 
-    ``device`` spans (the workers' ``backend.execute`` windows) are the
-    cover set: control-plane time that overlaps a device span ran while
-    the accelerators were busy anyway; the *exposed* remainder is time
-    the devices plausibly waited on — the trace-side estimate the
+    ``device`` spans (the workers' ``backend.execute`` windows), with
+    the ``LEAF_SITES`` spans nested in them, are the cover set and get
+    no row of their own: control-plane time that overlaps a device span
+    ran while the accelerators were busy anyway; the *exposed* remainder
+    is time the devices plausibly waited on — the trace-side estimate the
     injection sweep's sensitivity slope confirms or refutes per site
     ("time spent ≠ time that matters" runs both ways: exposed-but-
     insensitive spans are slack, hidden-but-sensitive ones are the
     pipeline's hidden serialization)."""
+    cover = (device_site,) + LEAF_SITES
     device = _merge_intervals([(ev.t0, ev.t0 + ev.dur)
                                for _, ev in pairs
-                               if ev.site == device_site and not ev.instant])
+                               if ev.site in cover and not ev.instant])
     summary: Dict[str, dict] = {}
     for _, ev in pairs:
-        if ev.site == device_site:
+        if ev.site in cover:
             continue
         s = summary.setdefault(ev.site, {"count": 0, "total_s": 0.0,
                                          "exposed_s": 0.0})
@@ -416,12 +426,13 @@ def phase_summary(pairs: List[Tuple[str, SpanEvent]],
     for _, ev in pairs:
         if ev.phase is not None and ev.step is not None:
             phase_of.setdefault(ev.step, ev.phase)
+    cover = (device_site,) + LEAF_SITES
     device = _merge_intervals([(ev.t0, ev.t0 + ev.dur)
                                for _, ev in pairs
-                               if ev.site == device_site and not ev.instant])
+                               if ev.site in cover and not ev.instant])
     out: Dict[str, dict] = {}
     for _, ev in pairs:
-        if ev.site == device_site or ev.instant:
+        if ev.site in cover or ev.instant:
             continue
         phase = ev.phase
         if phase is None and ev.step is not None:
