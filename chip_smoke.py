@@ -156,7 +156,9 @@ fails:
    layers, d_model 1536, 24/8 heads at D 64, 40 experts top-8 with d_ff
    512, vocab 49,155, tied, bf16), run as phase 7 runs qwen2-0.5b; B3
    launched at least 32 times per prefill, all on its ``wgmma`` route,
-   and B2 at least 32 times per decode step;
+   and B2 at least 32 times per decode step; the experts' dispatch and
+   combine kernels (``kernels.moe_dispatch``) 32 times each per decode
+   step of 8 rows (the prefill's 4,096 tokens take the plain path);
 22. qwen2-moe-a2.7b as published (24 layers, d_model 2048, 16/16 heads at
    D 128, 60 experts top-4 with d_ff 1408 and 4 shared experts, vocab
    151,936, untied, bf16; about 28.6 GB of weights, freed afterwards), the
@@ -293,7 +295,24 @@ fails:
    per-step loop would take seconds at 32,768, and the plain version
    timed once at the full length); each timed beside its plain version
    and its bound as phases 10 and 15 time them; B3's and B2's launches are
-   phase 35's, B4's phase 12's.
+   phase 35's, B4's phase 12's;
+37. the experts' dispatch and combine kernels (after phases 21-22): one
+   moe layer at granite-moe's widths over 64 and 8 tokens (the decode
+   steps of the gen-decode and gen-prefill cells) and qwen2-moe-a2.7b's
+   over 64, float32 with TF32 off and bf16, the fused path against the
+   plain one on the same card, weights and inputs
+   (``tests/test_torch_moe_cuda.py``'s ``fused_against_plain``: the
+   expert sets under the near-tie rule, the buckets and their rows
+   bitwise, the gates within rtol 1e-6, the aux loss within 1e-5, the
+   outputs within 1e-5 in float32 and two bf16 steps in bf16); then, in
+   bf16, each kernel timed at those shapes beside its plain counterpart
+   (``_route`` and ``_bucket``, router product included, for the
+   dispatch; ``_combine`` for the combine) and its bound (bytes over
+   3.35 TB/s); then the whole layer, plain path against fused, each
+   captured in a CUDA graph and timed over 300 replays, at granite-moe's
+   8, 64, 128 and 256 tokens and qwen2-moe's 64, 128, 256 and 512 (up to
+   ``MAX_ASSIGNMENTS``, the fused path's limit), and the fused layer must
+   be the faster at each.
 
 Phases 8, 14 and 24 run ``decode_multi`` captured on the card (the moe
 archs' recorded run takes the stepwise loop, and the captured loop must
@@ -303,7 +322,9 @@ The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
 phases above, and the backward kernels ``B3-bwd``, whose entries name the
 route their launch counts moved on as ``kernel_route``, and ``B4-bwd``,
 and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``; the
-last line is ``{"ok": true, "device": {...}}``.
+and phase 37's dispatch and combine, whose entries carry the whole
+layer's replayed times, plain and fused, as ``layer_ms``); the last line
+is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -591,12 +612,17 @@ def main() -> None:
 
     # 21.-24. the moe and encoder-decoder paths, B3 and B2 at whisper's
     # shapes
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    moe_launches = {}
     for i, arch in ((21, "granite-moe-3b-a800m"), (22, "qwen2-moe-a2.7b")):
         with phase(f"{i} ({arch})"):
-            n = layer_calls(arch, "attn")
-            model_path(dev, arch, {"flash": (flash_attention_bhsd, n, 0),
-                                   "decode": (decode_attention_bhd, 0, n)},
-                       routes={"wgmma": n})
+            n, m = layer_calls(arch, "attn"), moe_layer_calls(arch)
+            moe_launches[arch] = model_path(
+                dev, arch, {"flash": (flash_attention_bhsd, n, 0),
+                            "decode": (decode_attention_bhd, 0, n),
+                            "moe_dispatch": (moe_dispatch, 0, m),
+                            "moe_combine": (moe_combine, 0, m)},
+                routes={"wgmma": n})
     with phase("23 (whisper-small)"):
         enc, dec = (layer_calls("whisper-small", kind)
                     for kind in ("enc_attn", "dec_attn"))
@@ -632,6 +658,9 @@ def main() -> None:
         mesh_launches = mesh_path(dev)
     with phase("36 (B3, B2, B4 at pod_16x16's local shapes)"):
         entries += local_kernels(dev, mesh_launches, ssm_launches["scan"])
+    # 37. the experts' dispatch and combine
+    with phase("37 (moe dispatch and combine)"):
+        entries += moe_kernels(dev, moe_launches)
     log(f"the run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1351,6 +1380,14 @@ def layer_calls(arch: str, *kinds: str) -> int:
     from repro_torch.models.model import build_plan
     return sum(stage.n_periods for stage in build_plan(get_config(arch))
                for spec in stage.specs if spec.kind in kinds)
+
+
+def moe_layer_calls(arch: str) -> int:
+    """How many layers of ``arch`` run the experts in one pass."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import build_plan
+    return sum(stage.n_periods for stage in build_plan(get_config(arch))
+               for spec in stage.specs if spec.moe)
 
 
 # -- phase 33: the launch books against the profiler ---------------------------
@@ -2848,6 +2885,157 @@ def local_kernels(dev, mesh_launches: dict, scan_launches: int) -> list:
                 "launches": scan_launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms,
                 "bound_by": bound_by, "library_ms": None})
+    return out
+
+
+# -- phase 37: the experts' dispatch and combine -------------------------------
+
+# (arch, tokens): one moe layer at the decode steps of the gen-decode (64
+# rows) and gen-prefill (8 rows) cells, granite-moe's widths, and at
+# qwen2-moe-a2.7b's over 64
+MOE_SHAPES = (("granite-moe-3b-a800m", 64), ("granite-moe-3b-a800m", 8),
+              ("qwen2-moe-a2.7b", 64))
+# the whole layer, plain path against fused, up to MAX_ASSIGNMENTS at
+# top-8 (granite) and top-4 (qwen2-moe)
+MOE_LAYER_TOKENS = {"granite-moe-3b-a800m": (8, 64, 128, 256),
+                    "qwen2-moe-a2.7b": (64, 128, 256, 512)}
+
+
+def _replayed_ms(fn, reps: int = 300) -> float:
+    """``fn`` captured in a CUDA graph (after three warm-up calls on a
+    side stream), ms a replay: the least of three rounds of ``reps``
+    replays between CUDA events."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    best = math.inf
+    for _ in range(3):
+        start.record()
+        for _ in range(reps):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / reps)
+    return best
+
+
+def moe_kernels(dev, launches: dict) -> list:
+    """Phase 37 (module docstring).  ``launches`` maps each arch to its
+    model path's launch counts (phases 21-22)."""
+    import torch
+
+    from repro_torch.kernels.moe_dispatch import (
+        MAX_ASSIGNMENTS, moe_combine, moe_dispatch)
+    from repro_torch.models import moe as TMoE
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_moe_cuda import experts, fused_against_plain
+
+    bf16_err = {}
+    for arch, n in MOE_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            try:
+                r = fused_against_plain(arch, n, dtype, dev)
+            except AssertionError as e:
+                fail(f"{arch} over {n} tokens ({dtype}): the fused path "
+                     f"disagrees with the plain path: {e}")
+            log(f"moe {arch} over {n} tokens, {dtype}: fused against plain "
+                f"on seed {r['seed']}: buckets and their rows equal, gates "
+                f"rel err {r['gate_err']:.3g}, aux abs err "
+                f"{r['aux_err']:.3g}, outputs max abs err {r['y_err']:.3g}; "
+                f"routing {r['reports']}")
+            if dtype == torch.bfloat16:
+                bf16_err[arch, n] = r["y_err"]
+
+    layers, layer_ms, slower = {}, {}, []
+    with torch.no_grad():
+        for arch, tokens in MOE_LAYER_TOKENS.items():
+            layer = layers[arch] = experts(arch, dev, torch.bfloat16)
+            dims = layer.dims
+            params = {k: v.detach() for k, v in layer.named_parameters()}
+            for n in tokens:
+                if n * dims.top_k > MAX_ASSIGNMENTS:
+                    continue
+                x = torch.randn((n, dims.d_model), device=dev,
+                                generator=torch.Generator(dev).manual_seed(
+                                    1)).to(torch.bfloat16)
+                ms = {path: _replayed_ms(lambda: fn(params, x, dims))
+                      for path, fn in (("plain", TMoE._moe_gather),
+                                       ("fused", TMoE._moe_fused))}
+                layer_ms[arch, n] = ms
+                log(f"moe layer {arch} bf16 over {n} tokens ({n * dims.top_k}"
+                    f" assignments, C {TMoE._capacity(n, dims)}), a replayed "
+                    f"graph: plain {ms['plain']:.5f} ms, fused "
+                    f"{ms['fused']:.5f} ms ({ms['plain'] / ms['fused']:.2f}x)")
+                if ms["fused"] >= ms["plain"]:
+                    slower.append((arch, n))
+    if slower:
+        fail(f"the fused moe layer is not faster than the plain one at "
+             f"{slower}, within MAX_ASSIGNMENTS {MAX_ASSIGNMENTS}")
+
+    out = []
+    for arch, n in MOE_SHAPES:
+        layer = layers[arch]
+        dims = layer.dims
+        E, k, d = dims.e_pad, dims.top_k, dims.d_model
+        C = TMoE._capacity(n, dims)
+        x = torch.randn((n, d), device=dev, generator=torch.Generator(
+            dev).manual_seed(1)).to(torch.bfloat16)
+        with torch.no_grad():
+            logits = x.float() @ layer.router
+            xe, ge, slots, _ = moe_dispatch(logits, x, dims.n_experts, k, C)
+            y_e = TMoE._expert_ffn(layer.w_gate, layer.w_up, layer.w_down,
+                                   xe)
+            gates, idx, _ = TMoE._route(layer.router, x, dims)
+            _, _, tok = TMoE._bucket(x, gates, idx, C, dims)
+            kept = int((slots >= 0).sum())
+            calls = {
+                # logits and x read; xe, ge, slots and aux written
+                "moe_dispatch": (
+                    lambda: moe_dispatch(logits, x, dims.n_experts, k, C),
+                    lambda: TMoE._bucket(x, *TMoE._route(
+                        layer.router, x, dims)[:2], C, dims),
+                    4 * n * E + 2 * n * d + 2 * E * C * d + 4 * E * C
+                    + 4 * n * k + 4),
+                # the kept slots' rows and gates and the slot lists read;
+                # the tokens' rows written
+                "moe_combine": (
+                    lambda: moe_combine(y_e, ge, slots),
+                    lambda: TMoE._combine(y_e, ge, tok, n, d, k),
+                    kept * (2 * d + 4) + 4 * n * k + 2 * n * d),
+            }
+            for kname, (kernel, plain, nbytes) in calls.items():
+                ms, plain_ms = _time_pair(kernel, plain)
+                dev_ms = _device_ms_per_call(kernel)
+                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                name = f"{kname}_bf16_{arch.split('-moe')[0]}_n{n}"
+                log(f"{name}: E_pad {E}, top-{k}, d {d}, C {C}, {kept} kept "
+                    f"assignments: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
+                    f"ms, bound {bound_ms:.6f} ms (bytes; {nbytes} B); "
+                    f"device time per call (profiler): kernel {dev_ms}; the "
+                    f"layer replayed, plain {layer_ms[arch, n]['plain']:.5f} "
+                    f"ms, fused {layer_ms[arch, n]['fused']:.5f} ms")
+                out.append({
+                    "name": name, "route": "cuda",
+                    "source": "src/repro_torch/csrc/moe_dispatch.cu",
+                    "replaces": "src/repro/models/moe.py (_route, _bucket, "
+                                "_combine: XLA, no kernel)",
+                    "launches": launches[arch][kname],
+                    "max_abs_err": bf16_err[arch, n],
+                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                    "bound_by": "bytes", "library_ms": None,
+                    "dev_ms": dev_ms, "layer_ms": layer_ms[arch, n]})
+    del layers
+    torch.cuda.empty_cache()
     return out
 
 

@@ -142,6 +142,12 @@ def load_library() -> ctypes.CDLL:
     lib.msb_launch.restype = ci
     lib.msb_blocks.argtypes = [ci, ci]
     lib.msb_blocks.restype = ci
+    lib.moe_dispatch_launch.argtypes = [*[vp] * 6, *[ci] * 6, vp]
+    lib.moe_dispatch_launch.restype = ci
+    lib.moe_combine_launch.argtypes = [ci, *[vp] * 4, ci, ci, ci, vp]
+    lib.moe_combine_launch.restype = ci
+    lib.moe_limits.argtypes = [ci]
+    lib.moe_limits.restype = ci
     return lib
 
 
@@ -150,12 +156,12 @@ _MAX_SIGNATURES = 256       # per cache; past it the cache starts anew
 
 def checked_once(cache: dict, check, *tensors):
     """``check()`` once per call signature of ``tensors`` (shape, strides,
-    dtype and device of each; None stays None): the first call with a
-    signature runs it, and raises as it does; a later one returns the
-    value it cached.  ``check`` must read nothing of the tensors but
-    their signature, and return something other than None."""
-    key = tuple(None if t is None else (t.shape, t.stride(), t.dtype,
-                                        t.device) for t in tensors)
+    dtype and device of each; None and ints stay as they are): the first
+    call with a signature runs it, and raises as it does; a later one
+    returns the value it cached.  ``check`` must read nothing of the
+    tensors but their signature, and return something other than None."""
+    key = tuple(t if t is None or isinstance(t, int) else
+                (t.shape, t.stride(), t.dtype, t.device) for t in tensors)
     value = cache.get(key)
     if value is None:
         value = check()

@@ -40,6 +40,18 @@ the reference scales them, and summed over ``k`` with float32
 accumulation (``torch.sum``, no atomics), rounded once to the experts'
 dtype.  In float32 that differs from the reference only in the order of
 ``k`` additions.
+
+Decode-sized calls on the card take two hand-written kernels in place of
+routing, buckets and combine (``kernels.moe_dispatch``, around the same
+``_expert_ffn``): the same capacity, drop order, roundings and float32 sum
+over ``k`` in expert order, each assignment's slot counted instead of
+sorted, in two launches where the plain path makes some sixty.  The gates
+may differ from the plain path's in their last bits (the softmax sums in
+another order).  ``_moe_local`` takes them when the tensors are on the
+card, no gradient is needed, and the kernels take the call's sizes
+(``moe_dispatch.takes``: at most ``MAX_ASSIGNMENTS`` assignments); training,
+the ``shard_map`` bodies, the CPU and prefill-sized calls run the plain
+path.  ``PATH_CALLS`` counts the two.
 """
 from __future__ import annotations
 
@@ -62,6 +74,7 @@ from repro_torch.dist.sharding import (
     psum,
     shard_map,
 )
+from repro_torch.kernels import moe_dispatch as moe_kernels
 from repro_torch.models.layers import _normal, dense_init
 
 NEG_INF = -1e30
@@ -231,14 +244,49 @@ def _combine(y_e, ge, tok, n_tokens: int, d: int, top_k: int):
 # ---------------------------------------------------------------------------
 
 
-def _moe_local(params: Dict[str, torch.Tensor], x, dims: MoEDims):
-    """x: [N, d] -> (y [N, d], aux)."""
+# which path each ``_moe_local`` call took, counted (a graph's capture
+# counts, its replays run no Python); the tests read it
+PATH_CALLS = {"fused": 0, "gather": 0}
+
+
+def _fused(params: Dict[str, torch.Tensor], x, dims: MoEDims) -> bool:
+    """Whether ``_moe_local`` takes the fused dispatch and combine (module
+    docstring): on the card, with no gradient to keep, at sizes the kernels
+    take."""
+    if not x.is_cuda:
+        return False
+    if torch.is_grad_enabled() and (
+            x.requires_grad or any(p.requires_grad for p in params.values())):
+        return False
+    N, d = x.shape
+    return moe_kernels.takes(N, dims.e_pad, dims.top_k, d, x.dtype)
+
+
+def _moe_fused(params: Dict[str, torch.Tensor], x, dims: MoEDims):
+    """``_moe_local`` through the dispatch and combine kernels."""
+    logits = x.float() @ params["router"]                        # [N, E_pad]
+    xe, ge, slots, aux = moe_kernels.moe_dispatch(
+        logits, x, dims.n_experts, dims.top_k, _capacity(x.shape[0], dims))
+    y_e = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
+    return moe_kernels.moe_combine(y_e, ge, slots), aux
+
+
+def _moe_gather(params: Dict[str, torch.Tensor], x, dims: MoEDims):
+    """``_moe_local`` through the plain path's routing, buckets and
+    combine."""
     N, d = x.shape
     gates, idx, aux = _route(params["router"], x, dims)
     C = _capacity(N, dims)
     xe, ge, tok = _bucket(x, gates, idx, C, dims)
     y_e = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
     return _combine(y_e, ge, tok, N, d, dims.top_k), aux
+
+
+def _moe_local(params: Dict[str, torch.Tensor], x, dims: MoEDims):
+    """x: [N, d] -> (y [N, d], aux)."""
+    path = "fused" if _fused(params, x, dims) else "gather"
+    PATH_CALLS[path] += 1
+    return (_moe_fused if path == "fused" else _moe_gather)(params, x, dims)
 
 
 # which body ``moe_apply`` last took under a mesh, counted (the tests read

@@ -26,7 +26,33 @@ installed:
   (``torch.cuda.set_sync_debug_mode("error")``), so that a decode loop
   stays on the device.
 
-``routing_report`` also serves ``chip_smoke.py``'s phase 24.
+``routing_report`` also serves ``chip_smoke.py``'s phase 24, and
+``fused_against_plain`` its phase 37.
+
+The fused path (``kernels.moe_dispatch``: one dispatch and one combine
+kernel around the experts' products), against the plain path on the same
+card, weights and inputs (the plain side: ``_moe_gather``, and
+``_route`` and ``_bucket`` for the buckets):
+
+* granite's widths over 64 and 8 tokens and qwen2-moe-a2.7b's (60 experts
+  top-4, d_model 2,048) over 64, in float32 with TF32 off and in bf16:
+  the fused expert sets (the dispatch run with room for every assignment)
+  equal the plain ones under the near-tie rule; on a seed without a
+  near-tie the buckets are equal (the same tokens in the same slots, the
+  same rows bitwise), the gates within rtol 1e-6 (the softmax sums in
+  another order: a few float32 steps), the aux loss within 1e-5, and the
+  outputs within atol = rtol = 1e-5 in float32 (the gates' last bits and
+  the order of the k additions) and, in bf16, within 2^-6 of the largest
+  output plus rtol 2^-7: a gate that differs in its last float32 bit can
+  round to the neighbouring bf16 value, which moves one scaled row by a
+  bf16 step (2^-8 of it), and the final rounding can then land one more
+  step away;
+* a router made to overflow four experts (every token's top four): the
+  fused path drops exactly the assignments ``_bucket`` drops;
+* two calls are bitwise equal, and a call makes no host sync;
+* ``Model.decode_multi`` on granite's widths cut to two layers, captured
+  and replayed, equals its eager ``decode_step`` loop bitwise, and took the
+  fused path.
 """
 from __future__ import annotations
 
@@ -68,9 +94,14 @@ def granite_dims():
     return TMoE.moe_dims(cfg.moe, cfg.d_model)
 
 
-def granite_experts(device, dtype, seed: int = 0) -> TMoE.MoE:
-    return TMoE.MoE(granite_dims(), dtype, device,
+def experts(arch: str, device, dtype, seed: int = 0) -> TMoE.MoE:
+    cfg = get_config(arch)
+    return TMoE.MoE(TMoE.moe_dims(cfg.moe, cfg.d_model), dtype, device,
                     torch.Generator(device).manual_seed(seed))
+
+
+def granite_experts(device, dtype, seed: int = 0) -> TMoE.MoE:
+    return experts("granite-moe-3b-a800m", device, dtype, seed)
 
 
 def params_of(layer: TMoE.MoE) -> dict:
@@ -161,3 +192,185 @@ def test_moe_apply_makes_no_host_sync(cuda_device):
             torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert torch.isfinite(y).all()
+
+
+# ---------------------------------------------------------------------------
+# the fused dispatch and combine
+# ---------------------------------------------------------------------------
+
+FUSED_CASES = [("granite-moe-3b-a800m", 64), ("granite-moe-3b-a800m", 8),
+               ("qwen2-moe-a2.7b", 64)]
+# bf16 outputs: two bf16 steps (module docstring)
+BF16_TOL = 2.0 ** -7
+
+
+def fused_buckets(slots, N: int, C: int, E: int):
+    """The token in each bucket slot [E, C] (N where empty) from a fused
+    dispatch's slot lists."""
+    tok = torch.full((E * C,), N, dtype=torch.long, device=slots.device)
+    s = slots.long()
+    keep = s >= 0
+    tok[s[keep]] = torch.arange(N, device=slots.device)[:, None].expand_as(
+        s)[keep]
+    return tok.reshape(E, C)
+
+
+def fused_sets_report(layer, x) -> dict:
+    """The fused routing's expert sets (the dispatch run with a capacity of
+    every token, so nothing drops) against the plain path's on the same
+    card, under the near-tie rule."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    dims, N = layer.dims, x.shape[0]
+    k = dims.top_k
+    _, _, slots, _ = moe_dispatch(x.float() @ layer.router, x,
+                                  dims.n_experts, k, N)
+    assert (slots >= 0).all()
+    got = (slots.long() // N).sort(-1).values
+    probs = TMoE.router_probs(layer.router, x, dims)
+    top = torch.topk(probs, k + 1, dim=-1)
+    want = top.indices[:, :k].sort(-1).values
+    gap = top.values[:, k - 1] - top.values[:, k]
+    differ = (got != want).any(-1)
+    return {"differ": int(differ.sum()),
+            "near_ties": int((differ & (gap <= NEAR_TIE)).sum())}
+
+
+def fused_against_plain(arch: str, n_tokens: int, dtype, device) -> dict:
+    """The fused path against the plain path (``_moe_gather``; ``_route``
+    and ``_bucket`` for the buckets) on the same card, weights and inputs,
+    at ``arch``'s widths over ``n_tokens`` tokens, on the first of
+    ``SEEDS`` without a near-tie, at the limits of the module docstring.
+    Returns {"seed", "reports", "gate_err" (relative), "aux_err",
+    "y_err"}; raises AssertionError where the near-tie rule or a limit
+    breaks, or where every seed had a near-tie.  Also serves
+    ``chip_smoke.py``'s phase 37."""
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    reports = []
+    for seed in SEEDS:
+        layer = experts(arch, device, dtype, seed)
+        dims, params = layer.dims, params_of(layer)
+        x = torch.randn((n_tokens, dims.d_model), device=device,
+                        generator=torch.Generator(device).manual_seed(
+                            seed + 10)).to(dtype)
+        C = TMoE._capacity(n_tokens, dims)
+        with torch.no_grad():
+            rep = fused_sets_report(layer, x)
+            reports.append((seed, rep))
+            assert rep["differ"] == rep["near_ties"], reports
+            if rep["near_ties"]:
+                continue
+            before = dict(TMoE.PATH_CALLS)
+            y, aux = TMoE._moe_local(params, x, dims)
+            assert TMoE.PATH_CALLS["fused"] == before["fused"] + 1
+            assert TMoE.PATH_CALLS["gather"] == before["gather"]
+            y_p, aux_p = TMoE._moe_gather(params, x, dims)
+            gates, idx, _ = TMoE._route(layer.router, x, dims)
+            xe_p, ge_p, tok_p = TMoE._bucket(x, gates, idx, C, dims)
+            xe, ge, slots, _ = moe_dispatch(x.float() @ layer.router, x,
+                                            dims.n_experts, dims.top_k, C)
+        assert torch.equal(fused_buckets(slots, n_tokens, C, dims.e_pad),
+                           tok_p)
+        assert torch.equal(xe, xe_p)
+        torch.testing.assert_close(ge, ge_p, atol=0, rtol=1e-6)
+        torch.testing.assert_close(aux, aux_p, atol=1e-5, rtol=1e-5)
+        if dtype == torch.float32:
+            torch.testing.assert_close(y, y_p, atol=1e-5, rtol=1e-5)
+        else:
+            torch.testing.assert_close(
+                y.float(), y_p.float(), rtol=BF16_TOL,
+                atol=2 * BF16_TOL * y_p.float().abs().max().item())
+        return {"seed": seed, "reports": reports,
+                "gate_err": ((ge - ge_p).abs()
+                             / ge_p.abs().clamp_min(1e-30)).max().item(),
+                "aux_err": (aux - aux_p).abs().item(),
+                "y_err": (y.float() - y_p.float()).abs().max().item()}
+    raise AssertionError(f"every seed had a near-tie: {reports}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("arch,n_tokens", FUSED_CASES,
+                         ids=[f"{a[:5]}-{n}" for a, n in FUSED_CASES])
+def test_fused_path_matches_the_plain_path(cuda_device, no_tf32, arch,
+                                           n_tokens, dtype):
+    fused_against_plain(arch, n_tokens, dtype, cuda_device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+def test_fused_path_drops_what_bucket_drops(cuda_device, no_tf32, dtype):
+    from repro_torch.kernels.moe_dispatch import moe_dispatch
+    reports = []
+    for seed in SEEDS:
+        layer = experts("granite-moe-3b-a800m", cuda_device, dtype, seed)
+        dims, N = layer.dims, 64
+        g = torch.Generator(cuda_device).manual_seed(seed + 20)
+        x = torch.randn((N, dims.d_model), device=cuda_device,
+                        generator=g).abs().to(dtype)
+        with torch.no_grad():
+            layer.router[:, :4] += 0.05     # every token's top four: 0..3
+            rep = fused_sets_report(layer, x)
+            reports.append((seed, rep))
+            assert rep["differ"] == rep["near_ties"], reports
+            if rep["near_ties"]:
+                continue
+            C = TMoE._capacity(N, dims)
+            gates, idx, _ = TMoE._route(layer.router, x, dims)
+            assert (idx.sort(-1).values[:, :4]
+                    == torch.arange(4, device=cuda_device)).all()
+            xe_p, _, tok_p = TMoE._bucket(x, gates, idx, C, dims)
+            xe, _, slots, _ = moe_dispatch(x.float() @ layer.router, x,
+                                           dims.n_experts, dims.top_k, C)
+        dropped = int((slots < 0).sum())
+        assert dropped >= 4 * (N - C)
+        assert dropped == N * dims.top_k - int((tok_p < N).sum())
+        assert torch.equal(fused_buckets(slots, N, C, dims.e_pad), tok_p)
+        assert torch.equal(xe, xe_p)
+        return
+    pytest.fail(f"every seed had a near-tie: {reports}")
+
+
+@pytest.mark.cuda
+def test_fused_path_repeats_bitwise_and_makes_no_host_sync(cuda_device):
+    layer = experts("granite-moe-3b-a800m", cuda_device, torch.bfloat16)
+    x = torch.randn((64, 1, layer.dims.d_model), device=cuda_device,
+                    dtype=torch.bfloat16)
+    with torch.no_grad():
+        ya, auxa = layer(x)                          # warm-up, allocations
+        torch.cuda.synchronize()
+        before = TMoE.PATH_CALLS["fused"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            yb, auxb = layer(x)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert TMoE.PATH_CALLS["fused"] == before + 1
+    assert torch.equal(ya, yb) and torch.equal(auxa, auxb)
+
+
+@pytest.mark.cuda
+def test_captured_decode_multi_takes_the_fused_path_bitwise(cuda_device):
+    from test_torch_graph_cuda import (
+        clone, model_case, no_sync, restore, stepwise, unequal_leaves,
+    )
+    model, first, cache, S, ext = model_case(
+        cuda_device, "granite-moe-3b-a800m", n_layers=2)
+    steps = 8
+    eager_cache, graph_cache = clone(cache), clone(cache)
+    before = TMoE.PATH_CALLS["fused"]
+    want = stepwise(model, first, eager_cache, S, steps, ext)
+    assert TMoE.PATH_CALLS["fused"] == before + 2 * steps
+    for call in range(2):           # capture and replay, then replay only
+        if call:
+            restore(graph_cache, cache)
+        before = TMoE.PATH_CALLS["fused"]
+        got, _, _ = no_sync(lambda: model.decode_multi(first, graph_cache, S,
+                                                       steps, ext))
+        torch.cuda.synchronize()
+        assert (TMoE.PATH_CALLS["fused"] > before) == (call == 0)
+        assert torch.equal(got, want), call
+        assert unequal_leaves(graph_cache, eager_cache) == [], call
+    assert model.graphs.captures == 1
