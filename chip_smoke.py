@@ -312,9 +312,22 @@ fails:
    captured in a CUDA graph and timed over 300 replays, at granite-moe's
    8, 64, 128 and 256 tokens and qwen2-moe's 64, 128, 256 and 512 (up to
    ``MAX_ASSIGNMENTS``, the fused path's limit), and the fused layer must
-   be the faster at each.
+   be the faster at each;
+38. granite-4.0-h-small's first pipeline stage (port-only: layers 0-19,
+   18 Mamba-2 and 2 NoPE attention layers, 72 experts top-10 and a shared
+   expert each; bf16, every width as published, 16.3 B parameters) at
+   portbench's gen-hybrid-16k shapes, run first on the card (its
+   prefill's ~59 GiB peak wants an unfragmented allocator):
+   ``Model.prefill`` over 4 x 16,384 tokens, then 64 tokens by the
+   captured ``decode_multi`` and by the stepwise loop, tokens and caches
+   equal; the launch counts set to 0 before the prefill and read: B3 2 on
+   ``wgmma`` in the prefill, B2 2 a replayed step, the experts' kernels
+   none (the plain route), Mamba-2 18 calls and 18 x 64 SSD chunks; then
+   B3 at 4 x 16,384 (held to the chunked plain version) and B2 at 4 rows
+   over 16,448 slots, GQA 32/8 at D 128, held to their plain versions and
+   timed as phase 10 times them.
 
-Phases 8, 14 and 24 run ``decode_multi`` captured on the card (the moe
+Phases 8, 14, 24 and 38 run ``decode_multi`` captured on the card (the moe
 archs' recorded run takes the stepwise loop, and the captured loop must
 then give the same stream).  Each phase's wall time is logged.
 
@@ -323,7 +336,8 @@ phases above, and the backward kernels ``B3-bwd``, whose entries name the
 route their launch counts moved on as ``kernel_route``, and ``B4-bwd``,
 and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``; the
 and phase 37's dispatch and combine, whose entries carry the whole
-layer's replayed times, plain and fused, as ``layer_ms``); the last line
+layer's replayed times, plain and fused, as ``layer_ms``; and phase 38's
+B3 and B2 at granite-4.0-h's shapes); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -527,6 +541,11 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    # 38. granite-4.0-h's first stage at gen-hybrid-16k's shapes, first on
+    # the card: its prefill's ~59 GiB peak wants an unfragmented allocator
+    with phase("38 (granite-4.0-h-small, 20 layers, 4 x 16,384)"):
+        hybrid_entries = hybrid_path(dev)
+
     # 4. kernel vs plain version
     t4 = time.perf_counter()
     worst = {"float32": 0.0, "int8": 0.0}
@@ -661,6 +680,7 @@ def main() -> None:
     # 37. the experts' dispatch and combine
     with phase("37 (moe dispatch and combine)"):
         entries += moe_kernels(dev, moe_launches)
+    entries += hybrid_entries
     log(f"the run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -3037,6 +3057,149 @@ def moe_kernels(dev, launches: dict) -> list:
     del layers
     torch.cuda.empty_cache()
     return out
+
+
+# -- phase 38: granite-4.0-h's first pipeline stage --------------------------
+
+HYBRID_ARCH = "granite-4.0-h-small"
+HYBRID_LAYERS = 20                  # the first of two pipeline stages
+HYBRID_SHAPE = (4, 16384, 64)       # gen-hybrid-16k: rows, prompt, tokens
+
+
+def hybrid_path(dev) -> list:
+    """Phase 38: granite-4.0-h-small's first pipeline stage (layers 0-19:
+    18 Mamba-2 and 2 NoPE attention layers, each with 72 experts top-10 and
+    the shared expert) in bf16 at every published width, the weights
+    ``Model``'s own draw, at portbench's gen-hybrid-16k shapes:
+    ``Model.prefill`` over 4 x 16,384 tokens, then 64 greedy tokens by the
+    captured ``decode_multi`` and by the stepwise ``decode_step`` loop
+    from the same cache, which must give the same tokens and caches bit
+    for bit.  Every launch count is set to 0 just before the prefill and
+    read after each part: B3 2 launches in the prefill, all on its
+    ``wgmma`` route, B2 none; B2 2 a step over the replayed steps, B3
+    none; the experts' dispatch and combine kernels none (72 experts and
+    top-10 lie outside ``moe_dispatch.takes``: the plain route); Mamba-2
+    18 mixer calls and 18 x 64 SSD chunks in the prefill.  Then, the
+    model freed, B3 at the prefill's shape (held to the chunked plain
+    version) and B2 at the last step's (4 rows over 16,448 slots), GQA
+    32/8 at D 128, held to their plain versions and timed as phase 10
+    times them.  Returns their ``kernels`` entries."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_bhd
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    from repro_torch.models import model as M
+    from repro_torch.models.ssm import MAMBA2_COUNTS
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_graph_cuda import restore, stepwise, unequal_leaves
+
+    full = get_config(HYBRID_ARCH)
+    cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS,
+                              layer_types=full.layer_types[:HYBRID_LAYERS])
+    n_attn = cfg.layer_types.count("attention")
+    n_ssm = HYBRID_LAYERS - n_attn
+    B, S, N = HYBRID_SHAPE
+    t0 = time.perf_counter()
+    model = M.Model(cfg, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.from_numpy(np.random.default_rng(38).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    # warm-up at the timed shapes, not counted
+    _, c = model.prefill(toks)
+    c = M.grow_cache(c, cfg, B, S + N)
+    model.decode_step(toks[:, :1], c, S)
+    del c
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name} cut to {HYBRID_LAYERS} layers, {n_params} "
+        f"parameters ({cfg.dtype}), built and warmed in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    kernels = {"flash": flash_attention_bhsd, "decode": decode_attention_bhd,
+               "moe_dispatch": moe_dispatch, "moe_combine": moe_combine}
+    for w in kernels.values():
+        w.launches = 0
+    by_route = flash_attention_bhsd.launches_by_route
+    for r in by_route:
+        by_route[r] = 0
+    calls0, chunks0 = MAMBA2_COUNTS["calls"], MAMBA2_COUNTS["chunks"]
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    logits, cache = model.prefill(toks)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev)
+    in_prefill = {k: w.launches for k, w in kernels.items()}
+    want = {"flash": n_attn, "decode": 0, "moe_dispatch": 0,
+            "moe_combine": 0}
+    if in_prefill != want or dict(by_route) != {**dict.fromkeys(by_route, 0),
+                                                "wgmma": n_attn}:
+        fail(f"{HYBRID_ARCH}: the prefill launched {in_prefill} (routes "
+             f"{dict(by_route)}), want {want}, all of B3's on wgmma")
+    ssm_calls = MAMBA2_COUNTS["calls"] - calls0
+    ssm_chunks = MAMBA2_COUNTS["chunks"] - chunks0
+    chunks_each = -(-S // cfg.ssm.chunk)
+    if (ssm_calls, ssm_chunks) != (n_ssm, n_ssm * chunks_each):
+        fail(f"{HYBRID_ARCH}: the prefill ran {ssm_calls} Mamba-2 mixers "
+             f"and {ssm_chunks} SSD chunks, want {n_ssm} and "
+             f"{n_ssm * chunks_each}")
+    if not torch.isfinite(logits).all():
+        fail(f"{HYBRID_ARCH}: prefill logits are not finite")
+    saved = M.grow_cache(cache, cfg, B, S + N)
+    del cache
+    first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+    graph_c, eager_c = _clone(saved), _clone(saved)
+    captured, _, clen = model.decode_multi(first, graph_c, S, N)  # capture
+    restore(graph_c, saved)
+    before = {k: w.launches for k, w in kernels.items()}
+    torch.cuda.synchronize()
+    start.record()
+    fused, _, clen = model.decode_multi(first, graph_c, S, N)
+    end.record()
+    torch.cuda.synchronize()
+    graph_ms = start.elapsed_time(end) / N
+    replayed = {k: w.launches - before[k] for k, w in kernels.items()}
+    start.record()
+    steps = stepwise(model, first, eager_c, S, N)
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end) / N
+    want = {"flash": 0, "decode": n_attn * N, "moe_dispatch": 0,
+            "moe_combine": 0}
+    if replayed != want:
+        fail(f"{HYBRID_ARCH}: {N} replayed steps launched {replayed}, want "
+             f"{want}")
+    if not (torch.equal(captured, steps) and torch.equal(fused, steps)) \
+            or int(clen) != S + N:
+        fail(f"{HYBRID_ARCH}: decode_multi differs from stepwise decoding: "
+             f"{fused.tolist()} vs {steps.tolist()}")
+    differ = unequal_leaves(graph_c, eager_c)
+    if differ:
+        fail(f"{HYBRID_ARCH}: the captured decode_multi's cache differs from "
+             f"the eager loop's in {differ}")
+    launches = {k: w.launches for k, w in kernels.items()}
+    log(f"model path {HYBRID_ARCH} ({HYBRID_LAYERS} layers: {n_ssm} Mamba-2, "
+        f"{n_attn} attention): prefill {B} x {S} tokens {prefill_ms:.3f} ms, "
+        f"peak {peak} bytes allocated; decode {B} rows x {N} tokens: "
+        f"decode_multi replayed {graph_ms:.3f} ms/token, stepwise "
+        f"{eager_ms:.3f} ms/token; streams and caches equal; launches "
+        + ", ".join(f"{k} {launches[k]} ({in_prefill[k]} in prefill, "
+                    f"{replayed[k]} in a replayed call)" for k in kernels)
+        + f"; Mamba-2 {ssm_calls} calls, {ssm_chunks} SSD chunks in prefill")
+    del model, logits, saved, graph_c, eager_c
+    torch.cuda.empty_cache()
+    H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    _chunked_is_plain(dev)
+    return [time_flash(dev, launches, B, S, H, KV, D,
+                       plain=flash_plain_chunked),
+            time_decode(dev, launches, B, S + N, H=H, KV=KV, D=D)]
 
 
 if __name__ == "__main__":

@@ -1,5 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolves here (the port's copy
-of ``src/repro/configs/__init__.py``, same ten configs)."""
+of ``src/repro/configs/__init__.py``, same ten configs in ``ARCHS``).
+``PORT_ARCHS`` holds the architectures the port runs and the JAX package
+does not; ``get_config`` finds both."""
 from __future__ import annotations
 
 from repro_torch.configs.base import (
@@ -11,6 +13,8 @@ from repro_torch.configs.base import (
     PREFILL_32K,
     TRAIN_4K,
     EncDecConfig,
+    HybridMoEConfig,
+    Mamba2Config,
     ModelConfig,
     MoEConfig,
     ShapeCell,
@@ -29,6 +33,9 @@ from repro_torch.configs.zamba2_1_2b import CONFIG as ZAMBA2_1_2B
 from repro_torch.configs.granite_moe_3b import CONFIG as GRANITE_MOE_3B
 from repro_torch.configs.qwen2_moe_a2_7b import CONFIG as QWEN2_MOE_A2_7B
 from repro_torch.configs.qwen2_vl_7b import CONFIG as QWEN2_VL_7B
+from repro_torch.configs.granite_4_0_h_small import (
+    CONFIG as GRANITE_4_0_H_SMALL,
+)
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c
@@ -47,19 +54,30 @@ ARCHS: dict[str, ModelConfig] = {
 }
 
 
+# the port's own architectures, with no twin in the JAX package
+PORT_ARCHS: dict[str, ModelConfig] = {
+    c.name: c for c in (GRANITE_4_0_H_SMALL,)
+}
+
+
 def get_config(name: str) -> ModelConfig:
-    if name not in ARCHS:
-        raise KeyError(f"unknown arch {name!r}; known: {sorted(ARCHS)}")
-    return ARCHS[name]
+    cfg = ARCHS.get(name, PORT_ARCHS.get(name))
+    if cfg is None:
+        raise KeyError(f"unknown arch {name!r}; known: "
+                       f"{sorted(ARCHS) + sorted(PORT_ARCHS)}")
+    return cfg
 
 
 __all__ = [
     "ARCHS",
+    "PORT_ARCHS",
     "get_config",
     "ModelConfig",
     "MoEConfig",
     "SSMConfig",
     "EncDecConfig",
+    "HybridMoEConfig",
+    "Mamba2Config",
     "ShapeCell",
     "ALL_CELLS",
     "CELLS_BY_NAME",

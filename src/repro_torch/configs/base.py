@@ -198,3 +198,45 @@ def input_specs(config: ModelConfig, cell: ShapeCell) -> dict:
         pos_len = 1 if cell.kind == "decode" else S
         specs["mrope_positions"] = _sd((3, B, pos_len), torch.int32)
     return specs
+
+
+# ---------------------------------------------------------------------------
+# Port-only architectures (no twin in the JAX package)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Config(SSMConfig):
+    """Mamba-2 as published (Dao & Gu 2024; granite-4.0-h): one input
+    projection to ``[z, x || B || C, dt]``, a causal conv with bias over all
+    of ``x || B || C``, the SSD with ``n_groups`` groups of B and C shared
+    by the heads, and ``y * silu(z)`` through a gated RMSNorm, whose eps
+    is the model's (``HybridMoEConfig.norm_eps``).  zamba2's block (a
+    plain ``SSMConfig``, version 2) is the JAX package's simplification
+    of it."""
+    n_groups: int = 1
+
+
+@dataclasses.dataclass(frozen=True)
+class HybridMoEConfig(ModelConfig):
+    """A stack of Mamba-2 and attention layers, each followed by the
+    experts and an ungated shared expert (granite-4.0-h, ``family``
+    ``"hybrid_moe"``).  ``layer_types`` names each layer's mixer
+    (``"mamba"`` or ``"attention"``); attention has no positions (NoPE)
+    and scales its scores by ``attention_multiplier``; the embeddings are
+    scaled by ``embedding_multiplier``, each residual branch by
+    ``residual_multiplier``, and the logits divided by
+    ``logits_scaling``; every RMSNorm takes ``norm_eps``."""
+    layer_types: Tuple[str, ...] = ()
+    shared_d_ff: int = 0
+    embedding_multiplier: float = 1.0
+    attention_multiplier: float = 1.0
+    residual_multiplier: float = 1.0
+    logits_scaling: float = 1.0
+    norm_eps: float = 1e-5
+
+    def period(self) -> int:
+        """The shortest repeat of ``layer_types`` that tiles it whole."""
+        n = len(self.layer_types)
+        return next(p for p in range(1, n + 1) if n % p == 0 and
+                    self.layer_types == self.layer_types[:p] * (n // p))

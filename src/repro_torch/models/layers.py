@@ -81,13 +81,16 @@ def apply_norm(kind: str, x, scale=None, bias=None, eps: float = 1e-6):
 
 class Norm(nn.Module):
     """rmsnorm (``scale``), layernorm (``scale``, ``bias``) or
-    nonparametric_ln (no weights), initialised as the reference does."""
+    nonparametric_ln (no weights), initialised as the reference does;
+    ``eps`` is the reference's 1e-6 unless a configuration states its
+    own."""
 
-    def __init__(self, kind: str, d: int, dtype, device):
+    def __init__(self, kind: str, d: int, dtype, device, eps: float = 1e-6):
         super().__init__()
         if kind not in ("rmsnorm", "layernorm", "nonparametric_ln"):
             raise ValueError(f"unknown norm {kind!r}")
         self.kind = kind
+        self.eps = eps
         if kind != "nonparametric_ln":
             self.scale = nn.Parameter(torch.ones(d, dtype=dtype, device=device))
         if kind == "layernorm":
@@ -95,7 +98,7 @@ class Norm(nn.Module):
 
     def forward(self, x):
         return apply_norm(self.kind, x, getattr(self, "scale", None),
-                          getattr(self, "bias", None))
+                          getattr(self, "bias", None), self.eps)
 
 
 # ---------------------------------------------------------------------------

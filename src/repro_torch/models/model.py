@@ -18,6 +18,9 @@ periods per stage in place of the reference's stacked period axis:
                                                  ``decoder``: [self + cross
                                                  attn] x12
   moe archs:                                     1 stage, period = [attn(moe)]
+  granite-4.0-h (port-only, ``hybrid_moe``):    1 stage, period = the
+                                                 repeat of ``layer_types``
+                                                 ([ssm x5, attn, ssm x4])
 
 zamba2's shared attention block is one set of weights at the top level
 (``shared_block``), looked up by every period, with a K/V cache of its
@@ -31,6 +34,14 @@ entry.  A moe layer runs ``models.moe`` in place of its MLP (qwen2-moe
 adds shared experts behind a sigmoid gate); ``backbone`` returns its aux
 loss summed over the layers, which ``Model.loss_fn`` weighs into the
 training loss and ``prefill`` and decoding drop, as the reference's do.
+
+granite-4.0-h's layers (``HybridMoELayer``, port-only: the JAX package
+has no such model) run the published Mamba-2 (``ssm.Mamba2``) or GQA
+attention without positions (NoPE), each followed by the experts and an
+ungated shared expert; the model scales its embeddings, residual branches
+and logits by the configuration's multipliers (``HybridMoEConfig``).  In
+a prefill their mixers and feed-forwards are timed on the device when
+``profiling.start_model_spans`` has turned the model's spans on.
 
 Entry points: ``Model.loss_fn`` (training: ``backbone`` -> ``chunked_ce``,
 the cross-entropy in sequence chunks under ``torch.utils.checkpoint``;
@@ -88,6 +99,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -95,7 +107,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch import profiling
+from repro_torch.configs.base import HybridMoEConfig, ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.dist.sharding import (
     coordinate,
@@ -177,6 +190,17 @@ def build_plan(cfg: ModelConfig) -> List[Stage]:
         if tail:
             stages.append(Stage("hybrid_tail", (shared,) + (ssm,) * tail, 1))
         return stages
+    if cfg.family == "hybrid_moe":
+        if len(cfg.layer_types) != cfg.n_layers:
+            raise ValueError(f"{cfg.name}: {len(cfg.layer_types)} layer "
+                             f"types for {cfg.n_layers} layers")
+        kinds = {"mamba": LayerSpec(kind="ssm", moe=True),
+                 "attention": LayerSpec(kind="attn", use_rope=False,
+                                        moe=True)}
+        p = cfg.period()
+        return [Stage("hybrid_moe",
+                      tuple(kinds[t] for t in cfg.layer_types[:p]),
+                      cfg.n_layers // p)]
     if cfg.family == "audio" and cfg.encdec is not None:
         enc = LayerSpec(kind="enc_attn", causal=False, mlp=cfg.mlp,
                         use_rope=False)
@@ -375,6 +399,84 @@ class SsmLayer(nn.Module):
         return shard(x + y, "dp", "sp", None)
 
 
+class HybridMoELayer(nn.Module):
+    """A layer of granite-4.0-h (``HybridMoEConfig``): norm1 -> its mixer,
+    the published Mamba-2 (``ssm``) or GQA attention without positions
+    (``attn``, scores scaled by ``attention_multiplier``) -> ``x + m y``;
+    norm2 -> the experts plus the ungated shared expert (``moe``,
+    ``shared_mlp``) -> ``x + m y``; ``m`` is the residual multiplier and
+    every norm takes the configuration's eps.  A prefill times the mixer
+    and the feed-forward under ``profiling.model_span``."""
+
+    def __init__(self, spec: LayerSpec, cfg: HybridMoEConfig,
+                 layout: HeadLayout, device, generator):
+        super().__init__()
+        dtype = cfg.param_dtype()
+        d, eps = cfg.d_model, cfg.norm_eps
+        self.spec, self.layout = spec, layout
+        self.res = cfg.residual_multiplier
+        self.norm1 = Norm(cfg.norm, d, dtype, device, eps=eps)
+        if spec.kind == "ssm":
+            self.ssm = ssm_mod.Mamba2(ssm_mod.ssm_dims(cfg.ssm, d), eps,
+                                      dtype, device, generator)
+        else:
+            self.attn = Attention(d, layout, dtype, device, generator)
+            # the kernels scale the scores by 1/sqrt(Dh); q carries the rest
+            self.q_scale = cfg.attention_multiplier * math.sqrt(
+                layout.d_head)
+        self.norm2 = Norm(cfg.norm, d, dtype, device, eps=eps)
+        self.moe = moe_mod.MoE(moe_mod.moe_dims(cfg.moe, d, mesh_ctx().tp),
+                               dtype, device, generator)
+        self.shared_mlp = MLP("swiglu", d, cfg.shared_d_ff, dtype, device,
+                              generator)
+
+    def _qkv(self, h):
+        q = self.attn.project_q(h)
+        k, v = self.attn.project_kv(h)
+        return (q.float() * self.q_scale).to(q.dtype), k, v
+
+    def _ffn(self, x):
+        """(x + m (experts + shared expert)(norm2 x), the experts' aux)."""
+        h = self.norm2(x)
+        y, aux = self.moe(h)
+        return x + (y + self.shared_mlp(h)) * self.res, aux
+
+    def full(self, x, rot, *, want_cache: bool, enc_out=None):
+        """Prefill from scratch: (y, the cache entry | None, aux); the
+        entry is the final ``{conv, ssm}`` states or the ``{k, v}``."""
+        h = self.norm1(x)
+        if self.spec.kind == "ssm":
+            with profiling.model_span("ssm_mixer", x.device):
+                y, entry = self.ssm(h)
+        else:
+            with profiling.model_span("attn_mixer", x.device):
+                q, k, v = self._qkv(h)
+                y = self.attn.output_proj(flash_attention(
+                    q, k, v, self.layout, causal=True))
+            entry = {"k": k, "v": v}
+        del h
+        x = x + y * self.res
+        with profiling.model_span("ffn", x.device):
+            x, aux = self._ffn(x)
+        return x, (entry if want_cache else None), aux
+
+    def decode(self, x, rot, entry, step: "DecodeStep"):
+        """One token against ``entry``, which it updates in place: the
+        Mamba-2 states, or the K/V at ``step``'s slot."""
+        h = self.norm1(x)
+        if self.spec.kind == "ssm":
+            y, _ = self.ssm(h, entry, in_place=True)
+        else:
+            q, k, v = self._qkv(h)
+            kc, vc = entry["k"], entry["v"]
+            idx, cache_pos = step.slots(kc.shape[1], False)
+            write_slot(kc, k, idx)
+            write_slot(vc, v, idx)
+            y = self.attn.output_proj(decode_attention(
+                q, kc, vc, step.valid, cache_pos, self.layout))
+        return self._ffn(x + y * self.res)[0]
+
+
 class DecodeStep:
     """What every layer of one decode step shares, computed once per step
     rather than once per layer: the valid length after the write (int32,
@@ -566,6 +668,13 @@ class Model(nn.Module):
         self.embed = nn.Parameter(embed_init(cfg.padded_vocab, cfg.d_model,
                                              dtype, device, generator))
         self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
+        # granite-4.0-h's norm eps, embedding and logits multipliers
+        hybrid_moe = isinstance(cfg, HybridMoEConfig)
+        self.embed_scale = self.logits_scaling = None
+        if hybrid_moe:
+            self.final_norm.eps = cfg.norm_eps
+            self.embed_scale = cfg.embedding_multiplier
+            self.logits_scaling = cfg.logits_scaling
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(embed_init(
                 cfg.padded_vocab, cfg.d_model, dtype, device, generator))
@@ -583,6 +692,9 @@ class Model(nn.Module):
         self.graphs: Optional[GraphCache] = None
 
         def layer(spec):
+            if hybrid_moe:
+                return HybridMoELayer(spec, cfg, self.layout, device,
+                                      generator)
             if spec.kind == "ssm":
                 return SsmLayer(cfg, device, generator)
             return AttnLayer(spec, cfg, self.layout, device, generator)
@@ -614,6 +726,13 @@ class Model(nn.Module):
     def _logits(self, x):
         return lm_logits(x, self._table())
 
+    def _final(self, x):
+        """The final norm; for granite-4.0-h then the 1/``logits_scaling``
+        of its logits, taken here so that every head (``_logits``,
+        ``chunked_ce``) reads it."""
+        x = self.final_norm(x)
+        return x if self.logits_scaling is None else x / self.logits_scaling
+
     def _rotations(self, positions, extras):
         """The rotary cos/sin of each layer template, computed once per call
         and shared by every layer of that template: {spec: (cos, sin) |
@@ -640,6 +759,8 @@ class Model(nn.Module):
         embedding of positions ``start + arange(S)`` (``start`` is a
         device tensor at decode: no host sync)."""
         x = embed_lookup(self.embed, tokens)
+        if self.embed_scale is not None:
+            x = x * self.embed_scale
         if self.cfg.family == "audio":
             pos = start + torch.arange(tokens.shape[1], device=self.device)
             x = x + sinusoid_embed(pos, self.cfg.d_model).to(x.dtype)[None]
@@ -723,7 +844,7 @@ class Model(nn.Module):
                 cache[stage.name] = {
                     key: {n: torch.stack([e[n] for e in es]) for n in es[0]}
                     for key, es in entries.items()}
-        x = self.final_norm(x)
+        x = self._final(x)
         return x, (cache if want_cache else None), aux
 
     @_on_mesh
@@ -770,7 +891,7 @@ class Model(nn.Module):
                     entry = {n: t[p] for n, t in cache[stage.name][key].items()}
                     x = self._layer(period, li, spec).decode(x, rot[spec],
                                                              entry, step)
-        x = self.final_norm(x)
+        x = self._final(x)
         return self._logits(x), cache
 
     @torch.no_grad()

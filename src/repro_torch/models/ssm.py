@@ -1,5 +1,6 @@
 """State-space blocks, Mamba-1 (falcon-mamba) and Mamba-2 / SSD (zamba2):
-the port of ``src/repro/models/ssm.py``, with its names.
+the port of ``src/repro/models/ssm.py``, with its names; and, port-only,
+Mamba-2 as published (granite-4.0-h: ``Mamba2``, ``mamba2_block``).
 
 ``Mamba`` holds a block's weights under ``ssm_init``'s names; the
 functions take them as a mapping (``Mamba.params()``, or the reference's
@@ -21,6 +22,19 @@ has none for it); its three-operand einsums are split into two-operand
 ones, which sum in another order.  Decode is the same mix at S = 1 from
 the carried ``(conv, ssm)`` state.
 
+The published Mamba-2 (``configs.base.Mamba2Config``; the paper's block,
+of which zamba2's is the JAX package's simplification) projects
+``[z, x || B || C, dt]`` from the block input in one product, runs the
+causal conv with its bias over all of ``x || B || C`` (B and C in
+``n_groups`` groups that the heads share), the SSD in chunks of the
+configured length (``ssd``: a ragged tail is padded with ``dt = 0``, which
+neither decays nor adds to the state), ``y + D x``, then
+``RMSNorm(y * silu(z))`` and the output product.  Its decode step
+(``mamba2_step``) is the recurrence itself, in place on the carried
+``(conv, ssm)`` state.  ``MAMBA2_COUNTS`` counts its mixer calls and the
+SSD chunks they ran (a captured graph's replays run no Python and count
+nothing).  It runs on one card, with no mesh.
+
 Under a mesh the channels (``d_inner``; Mamba-2's heads) lie on the
 tensor axis, as in the reference (``ssm_param_axes``).  The projections
 are DTensor products; the regions that act per channel run on each
@@ -31,13 +45,14 @@ within a head.  No region gathers the channels.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Mapping, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.configs.base import SSMConfig
+from repro_torch.configs.base import Mamba2Config, SSMConfig
 from repro_torch.dist.sharding import current as mesh_ctx
 from repro_torch.dist.sharding import (
     is_dtensor,
@@ -61,11 +76,31 @@ class SSMDims:
     head_dim: int         # mamba-2
     chunk: int
 
+    @property
+    def conv_dim(self) -> int:
+        """Channels of the causal conv and its carried state."""
+        return self.d_inner
+
+
+@dataclasses.dataclass(frozen=True)
+class Mamba2Dims(SSMDims):
+    """The published Mamba-2's sizes: B and C in ``groups`` groups, which
+    the conv runs over beside x."""
+    groups: int = 1
+
+    @property
+    def conv_dim(self) -> int:
+        return self.d_inner + 2 * self.groups * self.d_state
+
 
 def ssm_dims(cfg: SSMConfig, d_model: int) -> SSMDims:
+    """The block's sizes: ``Mamba2Dims`` for the published Mamba-2
+    (``Mamba2Config``), else the reference's ``SSMDims``."""
     d_inner = cfg.expand * d_model
     dt_rank = cfg.dt_rank or -(-d_model // 16)
-    return SSMDims(
+    extra = ({"groups": cfg.n_groups} if isinstance(cfg, Mamba2Config)
+             else {})
+    return (Mamba2Dims if extra else SSMDims)(
         version=cfg.version,
         d_model=d_model,
         d_inner=d_inner,
@@ -75,6 +110,7 @@ def ssm_dims(cfg: SSMConfig, d_model: int) -> SSMDims:
         n_heads=d_inner // cfg.head_dim,
         head_dim=cfg.head_dim,
         chunk=cfg.chunk,
+        **extra,
     )
 
 
@@ -328,6 +364,215 @@ def ssm_state_specs(dims: SSMDims, batch: int, dtype):
         ssm = (batch, dims.d_inner, dims.d_state)
     else:
         ssm = (batch, dims.n_heads, dims.head_dim, dims.d_state)
-    return {"conv": torch.empty((batch, dims.d_conv - 1, dims.d_inner),
+    return {"conv": torch.empty((batch, dims.d_conv - 1, dims.conv_dim),
                                 dtype=dtype, device="meta"),
             "ssm": torch.empty(ssm, dtype=torch.float32, device="meta")}
+
+
+# ---------------------------------------------------------------------------
+# mamba-2 as published (port-only)
+# ---------------------------------------------------------------------------
+
+
+# the published block's mixer calls and the SSD chunks they ran
+MAMBA2_COUNTS = {"calls": 0, "chunks": 0}
+
+# elements of one head block's [B, chunks, heads, T, T] decay matrix at
+# most (1 GiB in float32): ``ssd`` runs the heads in blocks under it
+SSD_BLOCK_ELEMENTS = 1 << 28
+
+
+def _uniform(shape, lo: float, hi: float, device, generator):
+    device = torch.device(device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device=device)
+    return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                       dtype=torch.float32, device=device)
+
+
+class Mamba2(nn.Module):
+    """The published block's weights: ``w_in [d, 2 di + 2 G n + nh]`` (z,
+    then x || B || C, then dt), ``conv_w [K, di + 2 G n]``, ``conv_b``,
+    ``norm [di]`` (the gated RMSNorm's scale) and ``w_out [di, d]`` in the
+    model's dtype; ``dt_bias``, ``A_log`` and ``D`` ``[nh]`` in float32.
+    Drawn as Mamba-2 initialises them: ``A`` uniform in [1, 16], ``dt``
+    log-uniform in [0.001, 0.1] through the inverse softplus, unit ``D``
+    and norm, the conv's weights and bias uniform in ``[-1/sqrt(K),
+    1/sqrt(K)]`` as a conv layer's are, normal dense weights.  ``eps`` is
+    the gated RMSNorm's, the model's norm eps."""
+
+    def __init__(self, dims: Mamba2Dims, eps: float, dtype, device,
+                 generator):
+        super().__init__()
+        self.dims, self.eps = dims, eps
+        d, di, nh = dims.d_model, dims.d_inner, dims.n_heads
+        param = nn.Parameter
+        self.w_in = param(dense_init(d, di + dims.conv_dim + nh, dtype,
+                                     device, generator))
+        bound = dims.d_conv ** -0.5
+        self.conv_w = param(_uniform((dims.d_conv, dims.conv_dim), -bound,
+                                     bound, device, generator).to(dtype))
+        self.conv_b = param(_uniform((dims.conv_dim,), -bound, bound,
+                                     device, generator).to(dtype))
+        dt = torch.exp(_uniform((nh,), math.log(1e-3), math.log(1e-1),
+                                device, generator))
+        self.dt_bias = param(dt + torch.log(-torch.expm1(-dt)))
+        self.A_log = param(torch.log(_uniform((nh,), 1.0, 16.0, device,
+                                              generator)))
+        self.D = param(torch.ones(nh, dtype=torch.float32, device=device))
+        self.norm = param(torch.ones(di, dtype=dtype, device=device))
+        self.w_out = param(dense_init(di, d, dtype, device, generator))
+
+    def params(self) -> dict:
+        return dict(self.named_parameters(recurse=False))
+
+    def forward(self, x, state: Optional[dict] = None, *,
+                in_place: bool = False):
+        """A prefill (``state`` None, or a state to go on from), or with
+        ``in_place`` one decode step that overwrites ``state``."""
+        if in_place:
+            return mamba2_step(self.params(), x, self.dims, self.eps, state)
+        return mamba2_block(self.params(), x, self.dims, self.eps, state)
+
+
+def _split_in(params: Mapping, x, dims: Mamba2Dims):
+    """The input product cut into z [B, S, di], x || B || C [B, S, conv_dim]
+    and dt [B, S, nh]."""
+    return (x @ params["w_in"]).split(
+        [dims.d_inner, dims.conv_dim, dims.n_heads], dim=-1)
+
+
+def _heads_of(t, dims: Mamba2Dims):
+    """B or C [B, S, G n] -> each head's group, [B, S, nh, n] float32."""
+    B, S = t.shape[:2]
+    t = t.float().view(B, S, dims.groups, dims.d_state)
+    return t.repeat_interleave(dims.n_heads // dims.groups, dim=2)
+
+
+def _gated_norm(y, z, params: Mapping, dims: Mamba2Dims, eps: float,
+                dtype):
+    """RMSNorm(y * silu(z)) over each group's channels, in float32, cast
+    to ``dtype`` before the scale (the published gated norm)."""
+    B, S, di = y.shape
+    h = (y.float() * F.silu(z.float())).view(B, S, dims.groups, -1)
+    h = h * torch.rsqrt(h.pow(2).mean(-1, keepdim=True) + eps)
+    return h.view(B, S, di).to(dtype) * params["norm"].to(dtype)
+
+
+def ssd(x, dt, A, Bg, Cg, chunk: int, h0=None):
+    """The SSD in chunks of ``chunk`` positions, all chunks at once, the
+    heads in blocks of at most ``SSD_BLOCK_ELEMENTS`` decay entries (a
+    head's state never meets another head's, so each block runs whole).
+    x [B, S, nh, hd], dt [B, S, nh] (after the softplus), A [nh] (< 0),
+    Bg, Cg [B, S, G, n] (head h reads group ``h // (nh / G)``), all
+    float32; h0 [B, nh, hd, n] or None.  ``C_t . B_s`` is computed once a
+    group and broadcast over its heads.  Returns (y [B, S, nh, hd] without
+    the D term, h_last [B, nh, hd, n])."""
+    Bsz, S, nh, hd = x.shape
+    G, n = Bg.shape[2:]
+    nc = -(-S // chunk)
+    pad = nc * chunk - S
+    if pad:
+        # dt = 0: no decay and nothing added, so the state passes through
+        x, dt, Bg, Cg = (F.pad(t, (0,) * (2 * t.dim() - 4) + (0, pad))
+                         for t in (x, dt, Bg, Cg))
+    T = chunk
+    # [B, nh, nc, T] log-decays and their running sums within a chunk
+    cum = torch.cumsum((dt * A).view(Bsz, nc, T, nh).permute(0, 3, 1, 2),
+                       dim=-1)
+    bg = Bg.reshape(Bsz, nc, T, G, n).permute(0, 3, 1, 2, 4)   # [B,G,nc,T,n]
+    cg = Cg.reshape(Bsz, nc, T, G, n).permute(0, 3, 1, 2, 4)
+    cb = cg @ bg.transpose(-1, -2)                             # [B,G,nc,T,T]
+    group = torch.arange(nh, device=x.device) // (nh // G)
+
+    def heads(t, sl):
+        """``t`` [B, G, ...] for the heads of ``sl`` (broadcast for G 1)."""
+        return t if G == 1 else t.index_select(1, group[sl])
+
+    tri = torch.ones((T, T), dtype=torch.bool, device=x.device).tril()
+    tri_c = torch.ones((nc + 1, nc + 1), dtype=torch.bool,
+                       device=x.device).tril()
+    y = torch.empty((Bsz, nc, T, nh, hd), dtype=x.dtype, device=x.device)
+    h_last = torch.empty((Bsz, nh, hd, n), dtype=x.dtype, device=x.device)
+    step = max(1, SSD_BLOCK_ELEMENTS // (Bsz * nc * T * T))
+    for h in range(0, nh, step):
+        sl = slice(h, h + step)
+        hb = min(step, nh - h)
+        c = cum[:, sl]                                         # [B,hb,nc,T]
+        xdt = (x[:, :, sl] * dt[:, :, sl, None]).view(
+            Bsz, nc, T, hb, hd).permute(0, 3, 1, 2, 4)         # [B,hb,nc,T,hd]
+        # within a chunk: y_t = sum_{s<=t} C_t.B_s exp(cum_t - cum_s) x_s dt_s
+        decay = (c[..., :, None] - c[..., None, :]).masked_fill_(
+            ~tri, float("-inf")).exp_().mul_(heads(cb, sl))   # [B,hb,nc,T,T]
+        yb = decay @ xdt                                       # [B,hb,nc,T,hd]
+        del decay
+        # each chunk's own end state: sum_s exp(cum_T - cum_s) B_s x_s dt_s
+        w = torch.exp(c[..., -1:] - c)                         # [B,hb,nc,T]
+        st = (xdt * w[..., None]).transpose(-1, -2) @ heads(bg, sl)
+        # between chunks: the state entering each chunk, and the last one
+        start = (torch.zeros((Bsz, hb, hd, n), dtype=x.dtype,
+                             device=x.device) if h0 is None else h0[:, sl])
+        every = torch.cat([start[:, :, None], st], dim=2)      # [B,hb,nc+1,hd,n]
+        total = F.pad(c[..., -1], (1, 0)).cumsum(-1)           # [B,hb,nc+1]
+        carry = (total[..., :, None] - total[..., None, :]).masked_fill_(
+            ~tri_c, float("-inf")).exp_()                      # [B,hb,nc+1,nc+1]
+        entering = (carry @ every.flatten(-2)).view(Bsz, hb, nc + 1, hd, n)
+        yb += (heads(cg, sl) @ entering[:, :, :nc].transpose(-1, -2)
+               ) * torch.exp(c)[..., None]
+        y[:, :, :, sl] = yb.permute(0, 2, 3, 1, 4)
+        h_last[:, sl] = entering[:, :, nc]
+    return y.view(Bsz, nc * T, nh, hd)[:, :S], h_last
+
+
+def mamba2_block(params: Mapping, x, dims: Mamba2Dims, eps: float,
+                 state: Optional[dict] = None):
+    """x [B, S, d] -> (y [B, S, d], {conv, ssm}): the published block over
+    a whole sequence, from ``state`` or from zero; the states are where
+    the sequence leaves them."""
+    B, S, _ = x.shape
+    nh, hd = dims.n_heads, dims.head_dim
+    z, xbc, dt = _split_in(params, x, dims)
+    xbc, conv = causal_conv(xbc, params["conv_w"], params["conv_b"],
+                            state["conv"] if state is not None else None)
+    xs, b, c = xbc.split([dims.d_inner, dims.groups * dims.d_state,
+                          dims.groups * dims.d_state], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"].float())
+    xh = xs.reshape(B, S, nh, hd).float()
+    y, h = ssd(xh, dt, A, b.float().view(B, S, dims.groups, dims.d_state),
+               c.float().view(B, S, dims.groups, dims.d_state), dims.chunk,
+               state["ssm"] if state is not None else None)
+    MAMBA2_COUNTS["calls"] += 1
+    MAMBA2_COUNTS["chunks"] += -(-S // dims.chunk)
+    y = (y + params["D"][:, None] * xh).reshape(B, S, dims.d_inner)
+    y = _gated_norm(y, z, params, dims, eps, x.dtype)
+    # the conv state is a view of the conv's whole padded input: a copy,
+    # so that the cache does not keep that alive
+    return y @ params["w_out"], {"conv": conv.clone(), "ssm": h}
+
+
+def mamba2_step(params: Mapping, x, dims: Mamba2Dims, eps: float,
+                state: dict):
+    """One decode step, x [B, 1, d]: the conv over the carried inputs and
+    ``h <- exp(dt A) h + dt x B``, ``y = C h + D x``, writing the new conv
+    inputs and ``h`` into ``state``'s tensors.  Returns (y [B, 1, d],
+    state)."""
+    B = x.shape[0]
+    nh, hd = dims.n_heads, dims.head_dim
+    z, xbc, dt = _split_in(params, x, dims)
+    xbc, conv = causal_conv(xbc, params["conv_w"], params["conv_b"],
+                            state["conv"])
+    state["conv"].copy_(conv)
+    xs, b, c = xbc.split([dims.d_inner, dims.groups * dims.d_state,
+                          dims.groups * dims.d_state], dim=-1)
+    dt = F.softplus(dt.float() + params["dt_bias"])[:, 0]       # [B, nh]
+    A = -torch.exp(params["A_log"].float())
+    xh = xs.reshape(B, nh, hd).float()
+    h = state["ssm"]                                            # [B,nh,hd,n]
+    h.mul_(torch.exp(dt * A)[..., None, None]).add_(
+        (xh * dt[..., None])[..., None] * _heads_of(b, dims)[:, 0, :, None])
+    y = (h @ _heads_of(c, dims)[:, 0, :, :, None])[..., 0]      # [B,nh,hd]
+    MAMBA2_COUNTS["calls"] += 1
+    y = (y + params["D"][:, None] * xh).reshape(B, 1, dims.d_inner)
+    y = _gated_norm(y, z, params, dims, eps, x.dtype)
+    return y @ params["w_out"], state

@@ -49,10 +49,12 @@ exact same statements it did before this module existed.
 
 Copied from ``src/repro/profiling/__init__.py``, with its imports
 rewritten to ``repro_torch``; the serving leaf's trace-only spans
-(``LEAF_SITES``) are the port's own.
+(``LEAF_SITES``) and the model path's device-time spans (``MODEL_SITES``,
+``ModelSpans``) are the port's own.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -483,3 +485,79 @@ def format_summary(summary: Dict[str, dict]) -> str:
                      f"{s['total_s'] * 1e3:>10.2f} "
                      f"{s['exposed_s'] * 1e3:>11.2f} {pct:>8.1f}%")
     return "\n".join(lines)
+
+
+# -- the model path's device time (port-only) ----------------------------------
+
+# Device-time spans of a hybrid model's layers (``models.model.
+# HybridMoELayer.full``, eager calls only: a captured graph's replays run
+# no Python): each layer's mixer, by kind, and its feed-forward (the
+# experts and the shared expert).
+MODEL_SITES = ("ssm_mixer", "attn_mixer", "ffn")
+
+_UNTIMED = contextlib.nullcontext()
+
+
+class ModelSpans:
+    """The model path's spans, process-local and off by default: the sites
+    call ``model_span``, which returns a shared no-op context unless
+    ``start_model_spans`` installed one of these.  On the card a span
+    records a pair of CUDA events on the current stream around its work,
+    and ``totals`` waits for them; elsewhere it reads the host's clock
+    (work on the CPU is done when its call returns)."""
+
+    def __init__(self):
+        self.pending: List[Tuple[str, object, object]] = []
+        self.host_ms: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+
+    @contextlib.contextmanager
+    def span(self, site: str, device):
+        self.counts[site] = self.counts.get(site, 0) + 1
+        if device.type == "cuda":
+            import torch
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            yield
+            end.record()
+            self.pending.append((site, start, end))
+            return
+        t0 = time.perf_counter()
+        yield
+        self.host_ms[site] = (self.host_ms.get(site, 0.0)
+                              + (time.perf_counter() - t0) * 1e3)
+
+    def totals(self) -> Dict[str, float]:
+        """Each site's milliseconds so far, summed over its spans."""
+        out = dict(self.host_ms)
+        for site, start, end in self.pending:
+            end.synchronize()
+            out[site] = out.get(site, 0.0) + start.elapsed_time(end)
+        return out
+
+
+_MODEL: Optional[ModelSpans] = None
+
+
+def model_span(site: str, device):
+    """The span of ``site`` on ``device`` when the model's spans are on,
+    else the shared no-op context."""
+    spans = _MODEL
+    if spans is None:
+        return _UNTIMED
+    return spans.span(site, device)
+
+
+def start_model_spans() -> ModelSpans:
+    """Turn the model path's spans on in this process."""
+    global _MODEL
+    _MODEL = ModelSpans()
+    return _MODEL
+
+
+def stop_model_spans() -> Optional[ModelSpans]:
+    """Turn them off; returns what they recorded."""
+    global _MODEL
+    spans, _MODEL = _MODEL, None
+    return spans
