@@ -322,10 +322,17 @@ fails:
    captured ``decode_multi`` and by the stepwise loop, tokens and caches
    equal; the launch counts set to 0 before the prefill and read: B3 2 on
    ``wgmma`` in the prefill, B2 2 a replayed step, the experts' kernels
-   none (the plain route), Mamba-2 18 calls and 18 x 64 SSD chunks; then
-   B3 at 4 x 16,384 (held to the chunked plain version) and B2 at 4 rows
-   over 16,448 slots, GQA 32/8 at D 128, held to their plain versions and
-   timed as phase 10 times them.
+   none (the plain route), the SSD kernel 18 in the prefill and none in
+   decode, Mamba-2 18 calls, 18 x 64 SSD chunks and 18 SSDs on the
+   kernel; then B3 at 4 x 16,384 (held to the chunked plain version) and
+   B2 at 4 rows over 16,448 slots, GQA 32/8 at D 128, held to their plain
+   versions and timed as phase 10 times them; then the SSD kernel at one
+   layer of the prefill (4 x 16,384, 128 heads of 64, d_state 128),
+   held to the plain path against a float64 evaluation by the card
+   test's rule and timed beside it, its two bounds (this design's, float32
+   FMAs on CUDA cores at 67 TFLOP/s; and float32 accuracy on the tensor
+   cores by 3xTF32, ``TF32X3_FLOPS``) and each of its four passes' device
+   time.
 
 Phases 8, 14, 24 and 38 run ``decode_multi`` captured on the card (the moe
 archs' recorded run takes the stepwise loop, and the captured loop must
@@ -337,7 +344,7 @@ route their launch counts moved on as ``kernel_route``, and ``B4-bwd``,
 and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``; the
 and phase 37's dispatch and combine, whose entries carry the whole
 layer's replayed times, plain and fused, as ``layer_ms``; and phase 38's
-B3 and B2 at granite-4.0-h's shapes); the last line
+B3, B2 and the SSD kernel at granite-4.0-h's shapes); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -358,6 +365,9 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
+# float32 products at float32's accuracy on the tensor cores: TF32 dense
+# (BF16_FLOPS / 2) over the three products of a 3xTF32 split
+TF32X3_FLOPS = BF16_FLOPS / 2 / 3
 TOL = dict(atol=1e-5, rtol=1e-5)
 SERVE_TIMEOUT_S = 420
 
@@ -1709,13 +1719,12 @@ def _held_to_plain(got, want, what: str, kind: str) -> float:
     return err
 
 
-def _device_ms_per_call(fn, calls: int = 20) -> str:
+def _device_ms_by_kernel(fn, calls: int = 20) -> dict:
     """Device time per call of ``fn`` from ``torch.profiler`` (device
     activity only), the host's work between launches left out (which
-    back-to-back CUDA-event timing includes): for each kernel name, its
-    mean time per recorded launch times its launches per call (at least
-    one; the profiler can drop records), summed; "not measured" when it
-    recorded no kernel."""
+    back-to-back CUDA-event timing includes), by kernel name: its mean
+    time per recorded launch times its launches per call (at least one;
+    the profiler can drop records); {} when it recorded no kernel."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1725,13 +1734,18 @@ def _device_ms_per_call(fn, calls: int = 20) -> str:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA and e.count]
-    if not kernels:
-        return "not measured"
-    us = sum(e.self_device_time_total / e.count * max(1, round(e.count / calls))
-             for e in kernels)
-    return f"{us / 1e3:.4f} ms"
+    return {e.key: e.self_device_time_total / e.count
+            * max(1, round(e.count / calls)) / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+def _device_ms_per_call(fn, calls: int = 20) -> str:
+    """``_device_ms_by_kernel`` summed over the kernels, or "not
+    measured"."""
+    by_kernel = _device_ms_by_kernel(fn, calls)
+    return (f"{sum(by_kernel.values()):.4f} ms" if by_kernel
+            else "not measured")
 
 
 def time_attention(dev, launches: dict) -> list:
@@ -3078,12 +3092,14 @@ def hybrid_path(dev) -> list:
     read after each part: B3 2 launches in the prefill, all on its
     ``wgmma`` route, B2 none; B2 2 a step over the replayed steps, B3
     none; the experts' dispatch and combine kernels none (72 experts and
-    top-10 lie outside ``moe_dispatch.takes``: the plain route); Mamba-2
-    18 mixer calls and 18 x 64 SSD chunks in the prefill.  Then, the
-    model freed, B3 at the prefill's shape (held to the chunked plain
-    version) and B2 at the last step's (4 rows over 16,448 slots), GQA
-    32/8 at D 128, held to their plain versions and timed as phase 10
-    times them.  Returns their ``kernels`` entries."""
+    top-10 lie outside ``moe_dispatch.takes``: the plain route); the SSD
+    kernel 18 launches in the prefill, none in decode; Mamba-2 18 mixer
+    calls, 18 x 64 SSD chunks and 18 SSDs on the kernel in the prefill.
+    Then, the model freed, B3 at the prefill's shape (held to the chunked
+    plain version) and B2 at the last step's (4 rows over 16,448 slots),
+    GQA 32/8 at D 128, held to their plain versions and timed as phase 10
+    times them, and the SSD kernel at one layer (``time_ssd``).  Returns
+    their ``kernels`` entries."""
     import dataclasses
 
     import numpy as np
@@ -3093,6 +3109,7 @@ def hybrid_path(dev) -> list:
     from repro_torch.kernels.decode_attention import decode_attention_bhd
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    from repro_torch.kernels.ssd import ssd_chunk
     from repro_torch.models import model as M
     from repro_torch.models.ssm import MAMBA2_COUNTS
     sys.path.insert(0, str(ROOT / "tests"))
@@ -3121,13 +3138,14 @@ def hybrid_path(dev) -> list:
         f"{time.perf_counter() - t0:.1f} s")
 
     kernels = {"flash": flash_attention_bhsd, "decode": decode_attention_bhd,
-               "moe_dispatch": moe_dispatch, "moe_combine": moe_combine}
+               "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
+               "ssd": ssd_chunk}
     for w in kernels.values():
         w.launches = 0
     by_route = flash_attention_bhsd.launches_by_route
     for r in by_route:
         by_route[r] = 0
-    calls0, chunks0 = MAMBA2_COUNTS["calls"], MAMBA2_COUNTS["chunks"]
+    counts0 = dict(MAMBA2_COUNTS)
     torch.cuda.reset_peak_memory_stats(dev)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -3138,18 +3156,20 @@ def hybrid_path(dev) -> list:
     peak = torch.cuda.max_memory_allocated(dev)
     in_prefill = {k: w.launches for k, w in kernels.items()}
     want = {"flash": n_attn, "decode": 0, "moe_dispatch": 0,
-            "moe_combine": 0}
+            "moe_combine": 0, "ssd": n_ssm}
     if in_prefill != want or dict(by_route) != {**dict.fromkeys(by_route, 0),
                                                 "wgmma": n_attn}:
         fail(f"{HYBRID_ARCH}: the prefill launched {in_prefill} (routes "
              f"{dict(by_route)}), want {want}, all of B3's on wgmma")
-    ssm_calls = MAMBA2_COUNTS["calls"] - calls0
-    ssm_chunks = MAMBA2_COUNTS["chunks"] - chunks0
+    ssm_calls, ssm_chunks, ssm_kernel = (
+        MAMBA2_COUNTS[k] - counts0[k] for k in ("calls", "chunks",
+                                                "kernel_calls"))
     chunks_each = -(-S // cfg.ssm.chunk)
-    if (ssm_calls, ssm_chunks) != (n_ssm, n_ssm * chunks_each):
-        fail(f"{HYBRID_ARCH}: the prefill ran {ssm_calls} Mamba-2 mixers "
-             f"and {ssm_chunks} SSD chunks, want {n_ssm} and "
-             f"{n_ssm * chunks_each}")
+    if (ssm_calls, ssm_chunks, ssm_kernel) != (n_ssm, n_ssm * chunks_each,
+                                               n_ssm):
+        fail(f"{HYBRID_ARCH}: the prefill ran {ssm_calls} Mamba-2 mixers, "
+             f"{ssm_chunks} SSD chunks and {ssm_kernel} SSDs on the kernel, "
+             f"want {n_ssm}, {n_ssm * chunks_each} and {n_ssm}")
     if not torch.isfinite(logits).all():
         fail(f"{HYBRID_ARCH}: prefill logits are not finite")
     saved = M.grow_cache(cache, cfg, B, S + N)
@@ -3172,7 +3192,7 @@ def hybrid_path(dev) -> list:
     torch.cuda.synchronize()
     eager_ms = start.elapsed_time(end) / N
     want = {"flash": 0, "decode": n_attn * N, "moe_dispatch": 0,
-            "moe_combine": 0}
+            "moe_combine": 0, "ssd": 0}
     if replayed != want:
         fail(f"{HYBRID_ARCH}: {N} replayed steps launched {replayed}, want "
              f"{want}")
@@ -3192,14 +3212,88 @@ def hybrid_path(dev) -> list:
         f"{eager_ms:.3f} ms/token; streams and caches equal; launches "
         + ", ".join(f"{k} {launches[k]} ({in_prefill[k]} in prefill, "
                     f"{replayed[k]} in a replayed call)" for k in kernels)
-        + f"; Mamba-2 {ssm_calls} calls, {ssm_chunks} SSD chunks in prefill")
+        + f"; Mamba-2 {ssm_calls} calls, {ssm_chunks} SSD chunks, "
+        f"{ssm_kernel} of {ssm_calls} SSDs on the kernel in prefill")
     del model, logits, saved, graph_c, eager_c
     torch.cuda.empty_cache()
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     _chunked_is_plain(dev)
     return [time_flash(dev, launches, B, S, H, KV, D,
                        plain=flash_plain_chunked),
-            time_decode(dev, launches, B, S + N, H=H, KV=KV, D=D)]
+            time_decode(dev, launches, B, S + N, H=H, KV=KV, D=D),
+            time_ssd(dev, launches["ssd"], cfg)]
+
+
+def time_ssd(dev, launches: int, cfg) -> dict:
+    """Phase 38: the SSD kernel at one layer of gen-hybrid-16k's prefill
+    (the stage's Mamba-2 sizes over 4 x 16,384 positions, x, B and C in
+    bf16 as slices of the conv's output), held to the plain path
+    (``ssd_reference``) by the card test's rule (its error against a
+    float64 evaluation no larger than ``AS_ACCURATE`` times the plain
+    float32 path's, TF32 off), then timed beside it and two bounds:
+    ``bound_ms``, this kernel's design, float32 FMAs on CUDA cores
+    (operations over 67 TFLOP/s, or bytes over 3.35 TB/s); and
+    ``tc_bound_ms``, the same work at float32's accuracy on the tensor
+    cores by 3xTF32 (operations over ``TF32X3_FLOPS``, or bytes)."""
+    import torch
+
+    from portbench.roofline_hybrid import ssd_flops
+    from repro_torch.kernels.ssd import ssd_chunk
+    from repro_torch.models.ssm import ssd_reference, ssm_dims
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_ssd_cuda import AS_ACCURATE, relative_errors, ssd_inputs
+
+    dims = ssm_dims(cfg.ssm, cfg.d_model)
+    B, S, _ = HYBRID_SHAPE
+    nh, hd, n, G, T = (dims.n_heads, dims.head_dim, dims.d_state,
+                       dims.groups, dims.chunk)
+    inputs = ssd_inputs(dev, B, S, nh, G, h0=False, seed=38)
+    err = relative_errors(inputs, T)
+    if err["kernel_y"] > AS_ACCURATE * err["plain_y"] \
+            or err["kernel_h"] > AS_ACCURATE * err["plain_h"]:
+        fail(f"ssd kernel less accurate than the plain path at the cell's "
+             f"shape: {err}")
+
+    def kernel():
+        return ssd_chunk(**inputs, chunk=T)
+
+    def plain():
+        return ssd_reference(**inputs, chunk=T)
+    ms = cuda_ms(kernel, iters=10)
+    plain_ms = cuda_ms(plain, iters=3, warmup=1)
+    ms = min(ms, cuda_ms(kernel, iters=10))
+    flops = ssd_flops({"chunk": T, "d_state": n, "n_groups": G,
+                       "ssm_heads": nh, "ssm_head_dim": hd}, B, S)
+    x_bytes = inputs["x"].element_size()
+    nbytes = (B * S * (nh * hd * x_bytes + 2 * G * n * x_bytes + nh * 4)
+              + B * S * nh * hd * 4 + B * nh * hd * n * 4)
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(t_ops, t_bytes)
+    bound_by = "operations" if t_ops >= t_bytes else "bytes"
+    tc_bound_ms = max(flops / TF32X3_FLOPS * 1e3, t_bytes)
+    by_kernel = _device_ms_by_kernel(kernel, calls=5)
+    dev_ms = sum(by_kernel.values()) if by_kernel else None
+    name = f"ssd_chunk_bf16_b{B}_s{S}_h{nh}"
+    log(f"{name}: hd {hd}, d_state {n}, {G} group, chunk {T}: error vs "
+        f"float64 {err['kernel_y']:.3g} (plain float32 {err['plain_y']:.3g})"
+        f", h_last {err['kernel_h']:.3g} ({err['plain_h']:.3g}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, CUDA-core float32 bound "
+        f"{bound_ms:.4f} ms ({bound_by}; {flops:.4g} flop, {nbytes} B), "
+        f"3xTF32 tensor-core bound {tc_bound_ms:.4f} ms, achieved "
+        f"{flops / (ms * 1e-3) / 1e12:.2f} TFLOP/s; device time per call "
+        f"(profiler): "
+        + (f"{dev_ms:.4f} ms: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(by_kernel.items()))
+           if by_kernel else "not measured"))
+    return {"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/ssd_chunk.cu",
+            "replaces": None, "launches": launches,
+            "max_rel_err": err["kernel_y"], "plain_rel_err": err["plain_y"],
+            "ms": ms, "dev_ms": dev_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "bound_of": "float32 FMAs on CUDA cores",
+            "tc_bound_ms": tc_bound_ms, "tc_bound_of": "3xTF32 tensor cores",
+            "library_ms": None}
 
 
 if __name__ == "__main__":

@@ -148,6 +148,10 @@ def load_library() -> ctypes.CDLL:
     lib.moe_combine_launch.restype = ci
     lib.moe_limits.argtypes = [ci]
     lib.moe_limits.restype = ci
+    lib.ssd_launch.argtypes = [*[vp] * 11, *[ci] * 5, *[i64] * 6, vp]
+    lib.ssd_launch.restype = ci
+    lib.ssd_limits.argtypes = [ci]
+    lib.ssd_limits.restype = ci
     return lib
 
 

@@ -16,11 +16,10 @@ reference runs a chunked associative scan that computes the same
 function; the kernel carries the state in and out, so prefill fills the
 cache and decode steps it with the same call; in training it runs
 through ``MambaScanFn``, whose backward pass is B4's backward kernel.
-Mamba-2 runs the
-reference's chunked SSD as torch einsums, with no kernel (the JAX package
-has none for it); its three-operand einsums are split into two-operand
-ones, which sum in another order.  Decode is the same mix at S = 1 from
-the carried ``(conv, ssm)`` state.
+zamba2's Mamba-2 runs the reference's chunked SSD as torch einsums, with
+no kernel (the JAX package has none for it); its three-operand einsums are
+split into two-operand ones, which sum in another order.  Decode is the
+same mix at S = 1 from the carried ``(conv, ssm)`` state.
 
 The published Mamba-2 (``configs.base.Mamba2Config``; the paper's block,
 of which zamba2's is the JAX package's simplification) projects
@@ -29,11 +28,18 @@ causal conv with its bias over all of ``x || B || C`` (B and C in
 ``n_groups`` groups that the heads share), the SSD in chunks of the
 configured length (``ssd``: a ragged tail is padded with ``dt = 0``, which
 neither decays nor adds to the state), ``y + D x``, then
-``RMSNorm(y * silu(z))`` and the output product.  Its decode step
-(``mamba2_step``) is the recurrence itself, in place on the carried
-``(conv, ssm)`` state.  ``MAMBA2_COUNTS`` counts its mixer calls and the
-SSD chunks they ran (a captured graph's replays run no Python and count
-nothing).  It runs on one card, with no mesh.
+``RMSNorm(y * silu(z))`` and the output product.  ``ssd`` runs the
+hand-written kernel (``kernels/ssd.py``, ``csrc/ssd_chunk.cu``: the same
+float32 products, the running sums compensated and the decays kept on
+chip) for tensors on the card, and refuses there what the kernel does
+not take: other sizes, x, B and C in another type than bf16, and a call
+that needs a gradient (the kernel has no backward); on the CPU it runs
+``ssd_reference``, torch products over float32 decay matrices.  Its decode
+step (``mamba2_step``) is the recurrence itself, in place on the carried
+``(conv, ssm)`` state.  ``MAMBA2_COUNTS`` counts its mixer calls, the SSD
+chunks they ran and the calls whose SSD took the kernel (a captured
+graph's replays run no Python and count nothing).  It runs on one card,
+with no mesh.
 
 Under a mesh the channels (``d_inner``; Mamba-2's heads) lie on the
 tensor axis, as in the reference (``ssm_param_axes``).  The projections
@@ -61,6 +67,7 @@ from repro_torch.dist.sharding import (
     spec_for,
 )
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd as ssd_kernel
 from repro_torch.models.layers import _normal, dense_init
 
 
@@ -374,11 +381,12 @@ def ssm_state_specs(dims: SSMDims, batch: int, dtype):
 # ---------------------------------------------------------------------------
 
 
-# the published block's mixer calls and the SSD chunks they ran
-MAMBA2_COUNTS = {"calls": 0, "chunks": 0}
+# the published block's mixer calls, the SSD chunks they ran and the calls
+# whose SSD took the kernel
+MAMBA2_COUNTS = {"calls": 0, "chunks": 0, "kernel_calls": 0}
 
 # elements of one head block's [B, chunks, heads, T, T] decay matrix at
-# most (1 GiB in float32): ``ssd`` runs the heads in blocks under it
+# most (1 GiB in float32): ``ssd_reference`` runs the heads in blocks under it
 SSD_BLOCK_ELEMENTS = 1 << 28
 
 
@@ -460,14 +468,35 @@ def _gated_norm(y, z, params: Mapping, dims: Mamba2Dims, eps: float,
 
 
 def ssd(x, dt, A, Bg, Cg, chunk: int, h0=None):
-    """The SSD in chunks of ``chunk`` positions, all chunks at once, the
-    heads in blocks of at most ``SSD_BLOCK_ELEMENTS`` decay entries (a
-    head's state never meets another head's, so each block runs whole).
-    x [B, S, nh, hd], dt [B, S, nh] (after the softplus), A [nh] (< 0),
-    Bg, Cg [B, S, G, n] (head h reads group ``h // (nh / G)``), all
-    float32; h0 [B, nh, hd, n] or None.  ``C_t . B_s`` is computed once a
-    group and broadcast over its heads.  Returns (y [B, S, nh, hd] without
-    the D term, h_last [B, nh, hd, n])."""
+    """The SSD in chunks of ``chunk`` positions.  x [B, S, nh, hd] and
+    Bg, Cg [B, S, G, n] (head h reads group ``h // (nh / G)``) in the
+    model's type, dt [B, S, nh] (after the softplus) and A [nh] (< 0)
+    float32, h0 [B, nh, hd, n] float32 or None.  Returns (y [B, S, nh, hd]
+    without the D term, h_last [B, nh, hd, n]), float32: from the kernel on
+    the card, which raises on sizes it does not take and on a call that
+    needs a gradient (it has no backward), and from ``ssd_reference`` on
+    the CPU."""
+    if not x.is_cuda:
+        return ssd_reference(x, dt, A, Bg, Cg, chunk, h0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad
+            for t in (x, dt, A, Bg, Cg, h0)):
+        raise RuntimeError("the SSD kernel has no backward: run the card's "
+                           "Mamba-2 prefill under torch.no_grad()")
+    out = ssd_kernel.ssd_chunk(x, dt, A, Bg, Cg, chunk, h0)
+    MAMBA2_COUNTS["kernel_calls"] += 1
+    return out
+
+
+def ssd_reference(x, dt, A, Bg, Cg, chunk: int, h0=None):
+    """``ssd`` as torch products: all chunks at once, the heads in blocks
+    of at most ``SSD_BLOCK_ELEMENTS`` decay entries (a head's state never
+    meets another head's, so each block runs whole), x, Bg and Cg taken to
+    float32 (exactly, from bf16) or kept in a wider type.  ``C_t . B_s`` is
+    computed once a group and broadcast over its heads.  The plain version
+    the kernel is held to, and the path everywhere else."""
+    x, Bg, Cg = (t.to(torch.promote_types(t.dtype, torch.float32))
+                 for t in (x, Bg, Cg))
     Bsz, S, nh, hd = x.shape
     G, n = Bg.shape[2:]
     nc = -(-S // chunk)
@@ -538,9 +567,10 @@ def mamba2_block(params: Mapping, x, dims: Mamba2Dims, eps: float,
                           dims.groups * dims.d_state], dim=-1)
     dt = F.softplus(dt.float() + params["dt_bias"])
     A = -torch.exp(params["A_log"].float())
-    xh = xs.reshape(B, S, nh, hd).float()
-    y, h = ssd(xh, dt, A, b.float().view(B, S, dims.groups, dims.d_state),
-               c.float().view(B, S, dims.groups, dims.d_state), dims.chunk,
+    # the conv's output as it is: ``D xh`` below is taken in float32
+    xh = xs.reshape(B, S, nh, hd)
+    y, h = ssd(xh, dt, A, b.view(B, S, dims.groups, dims.d_state),
+               c.view(B, S, dims.groups, dims.d_state), dims.chunk,
                state["ssm"] if state is not None else None)
     MAMBA2_COUNTS["calls"] += 1
     MAMBA2_COUNTS["chunks"] += -(-S // dims.chunk)

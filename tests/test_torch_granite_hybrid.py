@@ -18,6 +18,7 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -26,6 +27,7 @@ import torch
 from repro_torch import profiling
 from repro_torch.configs import ARCHS, PORT_ARCHS, get_config
 from repro_torch.configs.base import Mamba2Config, MoEConfig, SSMConfig
+from repro_torch.kernels import ssd as SK
 from repro_torch.models import model as M
 from repro_torch.models import ssm as TS
 
@@ -261,6 +263,100 @@ def test_mamba2_counts_its_calls_and_chunks():
         blk(torch.randn(1, 1, 32), st, in_place=True)
     assert TS.MAMBA2_COUNTS["calls"] - before["calls"] == 2
     assert TS.MAMBA2_COUNTS["chunks"] - before["chunks"] == 3
+    assert TS.MAMBA2_COUNTS["kernel_calls"] == before["kernel_calls"]
+
+
+@pytest.mark.parametrize("grad", ["off", "weights"])
+def test_ssd_keeps_the_plain_path_on_the_cpu_and_under_grad(grad):
+    """On the CPU, with or without a gradient to keep, every call runs
+    ``ssd_reference``: ``calls`` counts, ``kernel_calls`` does not."""
+    blk, _, _ = block_of(64)
+    before = dict(TS.MAMBA2_COUNTS)
+    x = torch.randn(1, 70, 32, generator=torch.Generator().manual_seed(5))
+    with torch.set_grad_enabled(grad != "off"):
+        y, _ = blk(x)
+    rise = {k: TS.MAMBA2_COUNTS[k] - before[k] for k in before}
+    assert rise == {"calls": 1, "chunks": 2, "kernel_calls": 0}
+    assert y.requires_grad is (grad == "weights")
+
+
+def _ssd_args(nh=8, G=1, n=128, hd=64, S=16, dtype=torch.float32):
+    """dt, A, Bg, Cg for ``ssd`` beside an x of ``dtype``."""
+    return (torch.zeros(1, S, nh), torch.zeros(nh),
+            torch.zeros(1, S, G, n, dtype=dtype),
+            torch.zeros(1, S, G, n, dtype=dtype))
+
+
+SSD_ROWS = {
+    # name: (card, grad, x requires grad, A requires grad, sizes, dtype,
+    # what ``ssd`` does: the plain path, the kernel, or the error it raises)
+    "cpu": (False, False, False, False, {}, torch.bfloat16, "plain"),
+    "card": (True, False, False, False, {}, torch.bfloat16, "kernel"),
+    "card_float32": (True, False, False, False, {}, torch.float32,
+                     TypeError),
+    "grad_on_nothing_requires_it": (True, True, False, False, {},
+                                    torch.bfloat16, "kernel"),
+    "grad_through_x": (True, True, True, False, {}, torch.bfloat16,
+                       RuntimeError),
+    "grad_through_A": (True, True, False, True, {}, torch.bfloat16,
+                       RuntimeError),
+    "head_dim_32": (True, False, False, False, {"hd": 32}, torch.bfloat16,
+                    ValueError),
+    "d_state_64": (True, False, False, False, {"n": 64}, torch.bfloat16,
+                   ValueError),
+    "two_heads_a_group": (True, False, False, False, {"nh": 8, "G": 4},
+                          torch.bfloat16, ValueError),
+    "float16": (True, False, False, False, {}, torch.float16, TypeError),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SSD_ROWS))
+def test_ssd_takes_the_kernel_only_where_the_call_shows_it(name,
+                                                           monkeypatch):
+    """``ssd`` at chunk 256 for an x that shows the row's device, grad and
+    type: the plain path on the CPU; on the card the kernel, refused before
+    any launch where a gradient is needed, and refused by the wrapper's
+    check at sizes or a type it does not take.  The kernel runs only on the
+    card, so a stand-in x shows the card and the launch is replaced by the
+    wrapper's check on the CPU tensors.  And the chunks
+    ``kernels.ssd.takes``."""
+    card, grad, x_grad, a_grad, sizes, dtype, want = SSD_ROWS[name]
+    sz = {"nh": 8, "G": 1, "n": 128, "hd": 64, **sizes}
+    dt, A, Bg, Cg = _ssd_args(**sz, dtype=dtype)
+    A.requires_grad_(a_grad)
+    real = torch.zeros(1, 16, sz["nh"], sz["hd"], dtype=dtype)
+    x = real if not card else types.SimpleNamespace(
+        is_cuda=True, requires_grad=x_grad, real=real)
+
+    def launch(x, *args):
+        SK._check(x.real, *args)
+        return "kernel"
+
+    monkeypatch.setattr(SK, "ssd_chunk", launch)
+    before = TS.MAMBA2_COUNTS["kernel_calls"]
+    with torch.set_grad_enabled(grad):
+        if isinstance(want, str):
+            got = TS.ssd(x, dt, A, Bg, Cg, 256)
+            assert (got if got == "kernel" else "plain") == want
+        else:
+            with pytest.raises(want):
+                TS.ssd(x, dt, A, Bg, Cg, 256)
+    assert TS.MAMBA2_COUNTS["kernel_calls"] - before == (want == "kernel")
+    for chunk, takes in ((64, True), (192, True), (256, True), (32, False),
+                         (96, False), (512, False)):
+        assert SK.takes(64, 128, 8, 1, chunk, torch.bfloat16) is takes
+
+
+def test_ssd_kernel_takes_the_published_block_and_refuses_cpu_tensors():
+    cfg = get_config(ARCH)
+    dims = TS.ssm_dims(cfg.ssm, cfg.d_model)
+    assert SK.takes(dims.head_dim, dims.d_state, dims.n_heads, dims.groups,
+                    dims.chunk, torch.bfloat16)
+    dt, A, Bg, Cg = _ssd_args(nh=4)
+    before = SK.ssd_chunk.launches
+    with pytest.raises(ValueError):
+        SK.ssd_chunk(torch.zeros(1, 16, 4, 64), dt, A, Bg, Cg, 64)
+    assert SK.ssd_chunk.launches == before
 
 
 def _zamba2_block_digest():
