@@ -16,19 +16,6 @@ fails:
    0, and the fp32 run's k-step plans must have replayed captured graphs
    while the int8 run, whose pool keeps the per-step loop, replays none;
    the graphs each run captured and their capture time are logged;
-4. kernel vs plain version: the CUDA kernel against
-   ``paged_decode_attention_reference`` on the same inputs on the card, at
-   the serving shapes (H 14, KV 2, D 64, block 64, up to 64 rows of up to
-   32 pages) and at the CPU tests' edge cases, fp32 and int8, atol = rtol
-   = 1e-5; then the split over pages at forced split counts (1 to one
-   page a split, through the private ``_launch``), on the edge cases and
-   at 8 and 64 serving rows, seq_len-0 rows and a row whose valid pages
-   lie in one split among them;
-5. token identity: ``TorchBackend`` on the card with its k-step loop
-   captured, on the card with the same step run eagerly (``graphs`` set
-   to None), and on the CPU sample the
-   same tokens on the conformance workload (k=1, and k=4 under swap
-   churn, where the captured steps must have replayed);
 6. times at the serving shapes, 64 rows and the serve runs' 8 rows of 32
    full pages, fp32 and int8, with CUDA events: the kernel, the plain
    version, ``scaled_dot_product_attention`` over the gathered contiguous
@@ -55,26 +42,6 @@ fails:
    prefill, of four decode steps and of a replayed 4-step decode_multi
    from ``torch.profiler`` (kernel time over wall time, the profiler on,
    with the CUDA events time of the same call beside it);
-8. token identity of the model path: qwen2-0.5b at full width in float32,
-   the same weights on the card and on the CPU (plain versions there),
-   one 64-token prompt and 16 greedy tokens must agree (TF32 off);
-9. B2 and B3 against their plain versions on the card, float32 and
-   bfloat16 (tests/test_torch_attention_cuda.py's ``KERNEL_TOLS``: atol
-   = rtol = 2e-5; rtol = 2e-2 with atol = 8e-3 for B3 and 2e-3 for B2), on
-   the cases of
-   tests/test_torch_attention_cuda.py: tests/test_kernels.py's edge cases,
-   head dims 16/32/256, a GQA group of 48, the model's layouts at
-   qwen2-0.5b's heads, and the model paths' own shapes at the heads of
-   qwen2-0.5b (H 14, KV 2) and of zamba2-1.2b's shared block (H 32, KV
-   32): B3 at the 8 x 512 prefill and B2 at the decode steps over its
-   cache (8 rows over 544 slots, one shared length: 513 and 544); then
-   the card-only cases of the new designs: B3's tensor-core route (bf16,
-   D 64/128/256, S 1 to 512, causal, bidirectional and window 16, GQA
-   groups of 1, 7 and 48) and B2's split over the cache (split counts from
-   1 to one per tile, a row with no kept slot, a window and a ring whose
-   kept slots lie in one split), float32 and bfloat16; the log gives
-   the worst error and the worst excess of an error over rtol times the
-   plain value (the atol that case needed);
 10. B2 and B3 times in bf16 with CUDA events: B3 at qwen2-0.5b's heads at
    8 x 512 tokens (phase 7's prefill shape) and 1 x 4096, causal, and at
    8 x 512 with zamba2-1.2b's shared-block heads (32/32, D 64) and with
@@ -88,15 +55,6 @@ fails:
    its operations over 989 TFLOP/s (bf16); the log adds the kernel's and
    SDPA's device time per call from ``torch.profiler``, which leaves out
    the host's work between back-to-back launches;
-11. B4 (the Mamba-1 selective scan) against its plain version on the
-   card, float32, atol = rtol = 1e-4 on both y and h_last, on the cases of
-   tests/test_torch_mamba_scan_cuda.py: tests/test_kernels.py's three
-   shapes, a ragged Di, nonzero initial states, d_state 32 and 64, and
-   falcon-mamba-7b's width (8 x 8192 channels, d_state 16) at T = 1 from a
-   state, at T = 1 writing h_last over h0 (as a decode step writes its
-   cache entry) and at T = 512; then every d_state with its lanes per
-   channel at T = 1, 15, 17 and 40 (tiles of 16 steps), and h_last over h0
-   at every d_state with 16-byte and 4-byte copies;
 12. the state-space path at full width: falcon-mamba-7b as published (64
    Mamba-1 layers, d_model 4096, d_inner 8192, d_state 16, dt_rank 256,
    vocab 65,024, untied, bf16; 7,272,665,088 parameters), run as phase 7
@@ -107,12 +65,6 @@ fails:
    d_model 2048, 32/32 heads, d_ff 8192, vocab 32,000, bf16), the same run;
    B3 launched at least 7 times per prefill, all on its ``wgmma`` route,
    and B2 at least 7 times per decode step (the shared block's 7 calls);
-14. token identity of the state-space path, float32, TF32 off, as phase 8:
-   falcon-mamba-7b at full width cut to 4 of its 64 layers (the full
-   depth in float32 is about 29 GB and too slow on the CPU), and
-   zamba2-1.2b at full width cut to 8 of its 38 layers (one period of
-   [shared attention, ssm x6] and the tail [shared attention, ssm x2], so
-   both stages, B3 and B2 run; the cut keeps the CPU's share short);
 15. B4 times at phase 12's shapes, the prefill (8 x 512 from zero) and
    one decode step (8 x 1 from a state): each first held to its plain
    version on the timed inputs (1e-4; that error is the entry's
@@ -133,17 +85,6 @@ fails:
 18. fleet serve: ``serve --backend torch --replicas 2 --tp 1 --routing
    affinity``; every request completes, both replicas launch B1, and the
    per-replica request counts are printed;
-19. token identity of the compositions at phase 5's small width: phase
-   5's plans through ``TorchBackend`` on the card and on the CPU, the
-   hybrid (torch on the card -> cpu), speculative decode with the target
-   on the card and a cpu draft (k 3; and a draft drawn from another seed,
-   so that verify rejects) and speculative decode on the CPU: the streams
-   must all be equal, and in int8 the hybrid with the card's prefill tier
-   must equal the all-CPU hybrid; then at the serve runs' widths
-   (qwen2-0.5b's heads and vocab, block 64, 8 requests of 512 prompt
-   tokens), speculative decode (k 4, draft and target on the card) must
-   equal stepwise decode on the card, though B1 splits a verify call and
-   a decode step differently;
 20. B1 at speculative verify's call shape: 8 requests x 5 rows (k 4)
    sharing their tables of 32 pages, seq_lens start+1 .. start+5, at
    qwen2-0.5b's heads (block 64, the 256-page pool of phase 6's 8 rows),
@@ -170,18 +111,8 @@ fails:
    at least 24 times per prefill (12 bidirectional over the frames, 12
    causal), all on ``wgmma``, and B2 at least 24 times per step (12
    self-attention, 12 cross over the 1,500 slots);
-24. token identity of those paths, float32, TF32 off, as phase 8, at full
-   width cut in depth: granite-moe to 4 of 32 layers, qwen2-moe to 2 of
-   24, whisper to 2 encoder and 2 decoder layers with 1,500 frames; the
-   moe archs under the near-tie rule (``model_token_identity``: expert
-   sets compared call by call, a difference must be a near-tie of the
-   CPU's probabilities within 1e-5, and a run with one is logged and
-   retried with the next prompt seed, at most three; the routing hooks
-   record only what Python runs, so a moe arch's card stream comes from
-   its stepwise loop, and its captured loop must then give the same
-   tokens); then B3 at
-   whisper's encoder shape (8 x 1,500, bidirectional) and B2 at its
-   cross-attention decode (8 rows x 1,500 slots) held to their plain
+24. B3 at whisper-small's encoder shape (8 x 1,500, bidirectional) and B2
+   at its cross-attention decode (8 rows x 1,500 slots) held to their plain
    versions and timed as phase 10 times B3 and B2;
 25. the calibration on the card: ``repro_torch.launch.dryrun.
    emit_devmodel("qwen2-0.5b")`` at full width in bf16 (weights and data
@@ -198,8 +129,9 @@ fails:
    B3 at 1 x 32,768 (qwen2-0.5b's heads, causal) and B2 at the decode
    step's 128 rows x 32,768 slots, shapes no earlier phase runs, held to
    their plain versions on the same inputs (B3's computed in query chunks,
-   itself first held to the plain version at a small shape) at phase
-   9's bf16 tolerances and timed as phase 10 times them;
+   itself first held to the plain version at a small shape) at the
+   bf16 ``KERNEL_TOLS`` of tests/test_torch_attention_cuda.py and timed as
+   phase 10 times them;
 26. the DES on the card's coefficients: ``repro_torch.sim``'s
    attacker/victim workload (core_sweep_sim's defaults) at tp 1 over tp+1
    .. 16 tp cores on ``llama8b_tp4_params`` with its device and the
@@ -215,23 +147,6 @@ fails:
    tokenize and dequeue p95, each worker's start-up and the start-up's
    share of the TTFT are logged.
 
-28. B3's backward on the card, float32 and bfloat16, on
-   tests/test_torch_train_cuda.py's cases (tests/test_kernels.py's shapes;
-   every head dim at S 1, 17 and 512 with causal, bidirectional and
-   window-16 masks and GQA groups of 1, 7 and 48 through the model's views
-   and a grad_output of other strides; whisper's 8 x 1,500 encoder), so
-   both of its routes (``bwd_route``: bf16 at D 64 and 128 on the tensor
-   cores, the rest on the CUDA cores): the kernel forward's ``lse``
-   against the plain log-sum-exp, the backward kernels against
-   ``flash_attention_bwd_reference`` on the same inputs,
-   ``FlashAttentionFn`` against autograd of the plain forward (``BWD_TOLS``:
-   fp32 atol = rtol = 1e-4; bf16 rtol 2e-2 with B3's atol 8e-3);
-29. B4's backward likewise (float32; rtol 1e-4 with an atol of 1e-4 times
-   each gradient's largest magnitude): the scan cases with nonzero h0 and
-   h_last gradients, every d_state at T 1, 15, 17, 40 and 512, and
-   falcon-mamba's 8 x 512 x 8,192 x 16, the kernel from checkpoints that
-   the forward kernel wrote for it (``MambaScanFn``) and from checkpoints
-   it asked the forward kernel for itself (the wrapper without ``ckpt``);
 30. training at full width: ``python -m repro_torch.launch.train --arch
    qwen2-0.5b --scale full --batch 8 --seq 512`` for 6 steps with a
    checkpoint every 3, then to step 9 with ``--resume auto`` (run with the
@@ -245,25 +160,15 @@ fails:
    the busy share of one step (``torch.profiler``), B3 (or B4) forward and
    backward launched 24 (or 8) times a step, B3's backward all on its
    tensor-core (``wgmma``) route;
-31. training identity, float32, TF32 off: qwen2-0.5b and falcon-mamba-7b
-   at full width cut to 2 layers, three ``train_step``s of 2 x 64 tokens
-   on the card and on the CPU from the same weights and batches; losses
-   and grad norms within 1e-5 relative at step 1 and 1e-4 after
-   (tests/test_torch_train_cuda.py, ``IDENTITY_TOL``);
 32. the backward kernels' times: B3's at 8 x 512 with qwen2-0.5b's heads
    (bf16, causal) and at whisper's 8 x 1,500 (bidirectional), both on the
    ``wgmma`` route, B4's at 8 x 512 x 8,192 x 16 from the forward's
    checkpoints; each held to its plain version, then timed as phase 10
    times kernels, with SDPA's backward as B3's yardstick;
-33. the launch books (run after phase 10): the serving leaf's k-step call
-   (8 rows, k 4, qwen2-0.5b's widths) timed eager, captured, captured,
-   eager on the host clock (it ends in its host read), and that saving a
-   step set against the captures and replays of phase 3's fp32 serve
-   run; then the B1, B2 and B4 wrappers' counters against the kernels
-   ``torch.profiler`` records over the same calls, for a replayed and an
-   eager call of the serving leaf's k-step loop (8 rows, k 4, qwen2-0.5b's
-   widths) and of qwen2-0.5b's ``decode_multi`` as published (8 rows, 8
-   steps) against its stepwise loop.
+33. the serving leaf's k-step call (run after phase 10; 8 rows, k 4,
+   qwen2-0.5b's widths) timed eager, captured, captured, eager on the host
+   clock (it ends in its host read), and that saving a step set against
+   the captures and replays of phase 3's fp32 serve run;
 
 34. the dry-run on the card's host (run after the build, before the serve
    runs; it needs no card): ``python -m repro_torch.launch.dryrun`` as
@@ -299,20 +204,16 @@ fails:
 37. the experts' dispatch and combine kernels (after phases 21-22): one
    moe layer at granite-moe's widths over 64 and 8 tokens (the decode
    steps of the gen-decode and gen-prefill cells) and qwen2-moe-a2.7b's
-   over 64, float32 with TF32 off and bf16, the fused path against the
-   plain one on the same card, weights and inputs
-   (``tests/test_torch_moe_cuda.py``'s ``fused_against_plain``: the
-   expert sets under the near-tie rule, the buckets and their rows
-   bitwise, the gates within rtol 1e-6, the aux loss within 1e-5, the
-   outputs within 1e-5 in float32 and two bf16 steps in bf16); then, in
-   bf16, each kernel timed at those shapes beside its plain counterpart
-   (``_route`` and ``_bucket``, router product included, for the
-   dispatch; ``_combine`` for the combine) and its bound (bytes over
-   3.35 TB/s); then the whole layer, plain path against fused, each
-   captured in a CUDA graph and timed over 300 replays, at granite-moe's
-   8, 64, 128 and 256 tokens and qwen2-moe's 64, 128, 256 and 512 (up to
-   ``MAX_ASSIGNMENTS``, the fused path's limit), and the fused layer must
-   be the faster at each;
+   over 64, bf16: the fused layer held to the plain one on the timed inputs
+   (two bf16 steps, ``tests/test_torch_moe_cuda.py``'s limit; that error
+   is the entries' ``max_abs_err``); then each kernel timed at those
+   shapes beside its plain counterpart (``_route`` and ``_bucket``, router
+   product included, for the dispatch; ``_combine`` for the combine) and its
+   bound (bytes over 3.35 TB/s); then the whole layer, plain path against
+   fused, each captured in a CUDA graph and timed over 300 replays, at
+   granite-moe's 8, 64, 128 and 256 tokens and qwen2-moe's 64, 128, 256 and
+   512 (up to ``MAX_ASSIGNMENTS``, the fused path's limit), and the fused
+   layer must be the faster at each;
 38. granite-4.0-h-small's first pipeline stage (port-only: layers 0-19,
    18 Mamba-2 and 2 NoPE attention layers, 72 experts top-10 and a shared
    expert each; bf16, every width as published, 16.3 B parameters) at
@@ -331,18 +232,26 @@ fails:
    held to the plain path against a float64 evaluation by the card
    test's rule and timed beside it, its two bounds (this design's, float32
    FMAs on CUDA cores at 67 TFLOP/s; and float32 accuracy on the tensor
-   cores by 3xTF32, ``TF32X3_FLOPS``) and each of its four passes' device
+   cores by 3xTF32) and each of its four passes' device
    time.
 
-Phases 8, 14, 24 and 38 run ``decode_multi`` captured on the card (the moe
-archs' recorded run takes the stepwise loop, and the captured loop must
-then give the same stream).  Each phase's wall time is logged.
+39. the card tests (run with the serve runs, before this process touches
+   the card): ``python -m pytest -q --noconftest -m cuda`` over every
+   ``tests/test_torch_*_cuda.py`` as a subprocess; the log gives the
+   passed, failed and skipped counts, and a failed test or none passed
+   fails the run.  Each check that holds a kernel or a path to its plain
+   version, or the card's output to the CPU's, is one of those tests:
+   the phases above keep only what a test cannot hold (the card, the
+   build, subprocess runs, full-size models and their launch counts,
+   times, the calibration, the DES and the placed run).
+
+Each phase's wall time is logged.
 
 The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
 phases above, and the backward kernels ``B3-bwd``, whose entries name the
 route their launch counts moved on as ``kernel_route``, and ``B4-bwd``,
-and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``; the
-and phase 37's dispatch and combine, whose entries carry the whole
+and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``;
+phase 37's dispatch and combine, whose entries carry the whole
 layer's replayed times, plain and fused, as ``layer_ms``; and phase 38's
 B3, B2 and the SSD kernel at granite-4.0-h's shapes); the last line
 is ``{"ok": true, "device": {...}}``.
@@ -362,14 +271,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-HBM_BYTES_PER_S = 3.35e12        # H100 SXM device memory
 FP32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
-BF16_FLOPS = 989e12              # H100 SXM bf16 tensor cores, dense
-# float32 products at float32's accuracy on the tensor cores: TF32 dense
-# (BF16_FLOPS / 2) over the three products of a 3xTF32 split
-TF32X3_FLOPS = BF16_FLOPS / 2 / 3
 TOL = dict(atol=1e-5, rtol=1e-5)
 SERVE_TIMEOUT_S = 420
+CARD_TESTS_TIMEOUT_S = 1800
 
 
 def fail(msg: str) -> None:
@@ -387,7 +292,8 @@ COMPOSITE = ("handoffs", "handoff_blocks", "spec_steps", "drafted",
              "accepted")
 
 
-def run_module(module: str, *args: str) -> tuple:
+def run_module(module: str, *args: str,
+               timeout: float = SERVE_TIMEOUT_S) -> tuple:
     """Run ``python -m module args`` from the checkout in a session of its
     own, log its output and fail the run on a non-zero exit; returns (the
     output, wall seconds).  At the time limit the whole process group is
@@ -399,7 +305,7 @@ def run_module(module: str, *args: str) -> tuple:
                             stderr=subprocess.STDOUT, text=True, env=env,
                             cwd=ROOT, start_new_session=True)
     try:
-        out, _ = proc.communicate(timeout=SERVE_TIMEOUT_S)
+        out, _ = proc.communicate(timeout=timeout)
     finally:
         if proc.poll() is None:           # stop the whole process group
             os.killpg(proc.pid, signal.SIGKILL)
@@ -542,11 +448,10 @@ def main() -> None:
     # 30. the training CLI, also before this process touches the card
     with phase("30 (launch.train, two runs)"):
         train_cli()
+    # 39. the card tests, also before this process touches the card
+    with phase("39 (card tests)"):
+        card_tests()
 
-    from repro_torch.kernels.paged_decode_attention import (
-        paged_decode_attention as kernel,
-        paged_decode_attention_reference as plain,
-    )
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -556,38 +461,9 @@ def main() -> None:
     with phase("38 (granite-4.0-h-small, 20 layers, 4 x 16,384)"):
         hybrid_entries = hybrid_path(dev)
 
-    # 4. kernel vs plain version
-    t4 = time.perf_counter()
-    worst = {"float32": 0.0, "int8": 0.0}
-    for quantized in (False, True):
-        for case in edge_cases(quantized) + [serving_case(quantized, dev,
-                                                          ragged=True)]:
-            args, kw = to_device(case, dev)
-            got = kernel(*args, **kw)
-            torch.cuda.synchronize()
-            want = plain(*args, **kw)
-            err = (got - want).abs().max().item()
-            key = "int8" if quantized else "float32"
-            worst[key] = max(worst[key], err)
-            if not torch.allclose(got, want, **TOL):
-                fail(f"kernel disagrees with its plain version "
-                     f"({key}, q {tuple(args[0].shape)}, pages "
-                     f"{tuple(args[1].shape)}): max abs err {err:.3g}")
-    log(f"kernel vs plain version: max abs err fp32 {worst['float32']:.3g}, "
-        f"int8 {worst['int8']:.3g} (atol = rtol = 1e-5)")
-    paged_splits_vs_plain(dev, worst)
-    log(f"phase 4 (B1 vs plain) took {time.perf_counter() - t4:.1f} s")
-
-    # 5. token identity on the card and on the CPU, at small width
-    with phase("5 (serving token identity)"):
-        token_identity()
-    # 19. the compositions' streams at the same width
-    with phase("19 (composition identity)"):
-        composition_identity()
-
     # 6. times at the serving shapes
     with phase("6 (B1 times)"):
-        entries = [time_kernel(quantized, dev, run["launches"], worst, rows)
+        entries = [time_kernel(quantized, dev, run["launches"], rows)
                    for rows in (64, 8)
                    for quantized, run in ((False, fp32_run),
                                           (True, int8_run))]
@@ -606,19 +482,13 @@ def main() -> None:
         launches = model_path(dev, "qwen2-0.5b", {
             "flash": (flash_attention_bhsd, n, 0),
             "decode": (decode_attention_bhd, 0, n)}, routes={"wgmma": n})
-    with phase("8 (qwen2-0.5b cuda == cpu)"):
-        model_token_identity(dev, "qwen2-0.5b")
-    with phase("9 (B2, B3 vs plain)"):
-        attention_vs_plain(dev)
     with phase("10 (B2, B3 times)"):
         entries += time_attention(dev, launches)
-    # 33. the launch books against the profiler
-    with phase("33 (launch counters vs profiler)"):
-        graph_launches(dev, fp32_run)
+    # 33. the serving leaf's k-step call, eager and captured
+    with phase("33 (serving leaf k-step call)"):
+        leaf_call_times(dev, fp32_run)
 
-    # 11.-15. the state-space path, B4 (and B3/B2 in zamba2's shared block)
-    with phase("11 (B4 vs plain)"):
-        scan_vs_plain(dev)
+    # 12.-15. the state-space path, B4 (and B3/B2 in zamba2's shared block)
     with phase("12 (falcon-mamba-7b)"):
         n = layer_calls("falcon-mamba-7b", "ssm")
         ssm_launches = model_path(dev, "falcon-mamba-7b",
@@ -629,13 +499,6 @@ def main() -> None:
                    {"flash": (flash_attention_bhsd, n, 0),
                     "decode": (decode_attention_bhd, 0, n)},
                    routes={"wgmma": n})
-    with phase("14 (ssm archs cuda == cpu)"):
-        # 4 of 64 layers: the full depth in float32 is about 29 GB and too
-        # slow on the CPU; the widths stay as published
-        model_token_identity(dev, "falcon-mamba-7b", n_layers=4)
-        # 8 of 38 layers: one hybrid period and the tail, so both stages
-        # run
-        model_token_identity(dev, "zamba2-1.2b", n_layers=8)
     with phase("15 (B4 times)"):
         entries += time_scan(dev, ssm_launches["scan"])
 
@@ -661,15 +524,7 @@ def main() -> None:
              "decode": (decode_attention_bhd, 0, 2 * dec)},  # self and cross
             routes={"wgmma": enc + dec}, prompt=64,
             extras=audio_frames(dev, "whisper-small", 8))
-    from repro_torch.configs.base import EncDecConfig
-    with phase("24 (moe and audio archs cuda == cpu, whisper's kernels)"):
-        # depth cut so that the CPU's share stays short; widths as
-        # published
-        model_token_identity(dev, "granite-moe-3b-a800m", n_layers=4)
-        model_token_identity(dev, "qwen2-moe-a2.7b", n_layers=2)
-        model_token_identity(dev, "whisper-small", n_layers=2,
-                             encdec=EncDecConfig(n_encoder_layers=2,
-                                                 n_encoder_ctx=1500))
+    with phase("24 (whisper's kernels)"):
         entries += time_whisper(dev, whisper)
 
     # 25.-26. the calibration on the card, then the DES on its coefficients
@@ -678,8 +533,8 @@ def main() -> None:
         entries += long_kernels
     with phase("26 (DES sweep)"):
         des_sweep(rec["device_model"])
-    # 28.-32. training: the backward kernels, in process, card vs CPU, times
-    with phase("28-32 (training)"):
+    # 30., 32. training in process, the backward kernels' times
+    with phase("30, 32 (training)"):
         entries += training(dev)
     # 35.-36. the model path placed on a mesh, the kernels at one rank's
     # shapes of the production mesh
@@ -698,39 +553,15 @@ def main() -> None:
         "count": torch.cuda.device_count()}}), flush=True)
 
 
-# -- phase 4: inputs --------------------------------------------------------
+def card_cases(name: str):
+    """The card tests' module ``name`` (``tests/``), for the inputs and
+    limits of the phases' timed calls."""
+    import importlib
+    sys.path.insert(0, str(ROOT / "tests"))
+    return importlib.import_module(name)
 
-def edge_cases(quantized: bool) -> list:
-    """The CPU tests' edge cases (tests/test_torch_paged_attention.py):
-    ragged lengths, a -1 page inside a valid range, seq_len-0 rows on real
-    and on -1 pages, a row of only -1 pages; r in {1, 2, 7, 16}, D in
-    {16, 32, 64, 128}, block 8 and 16."""
-    import numpy as np
-    out = []
-    for r in (1, 2, 7, 16):
-        for D in (16, 32, 64, 128):
-            for block in (8, 16):
-                rng = np.random.default_rng(1000 * r + 10 * D + block)
-                KV, N, nb = 2, 24, 5
-                lens = [3 * block + 5, block, 0, 2 * block + 1, 0,
-                        block + 3, 4]
-                perm = rng.permutation(N)
-                bt = np.full((len(lens), nb), -1, np.int32)
-                used = 0
-                for b, n_tok in enumerate(lens):
-                    n_pages = -(-n_tok // block)
-                    bt[b, :n_pages] = perm[used:used + n_pages]
-                    used += n_pages
-                bt[0, 1] = -1
-                bt[2, :2] = perm[used:used + 2]
-                bt[6, :] = -1
-                case = dict(
-                    q=rng.standard_normal((len(lens), r * KV, D)),
-                    block_tables=bt, seq_lens=np.asarray(lens, np.int32))
-                add_pages(case, rng, (KV, N, block, D), quantized)
-                out.append(case)
-    return out
 
+# -- phase 6: B1 at the serving shapes ---------------------------------------
 
 def add_pages(case: dict, rng, shape, quantized: bool) -> None:
     import numpy as np
@@ -783,210 +614,6 @@ def to_device(case: dict, dev):
     return args, kw
 
 
-def paged_splits_vs_plain(dev, worst: dict) -> None:
-    """B1's split over pages against the plain version: the edge cases
-    (nb 5, seq_len-0 rows on real and -1 pages) at 1 to 5 splits, and the
-    serving shapes at 8 and 64 rows (tests/test_torch_kernels_cuda.py's
-    ``serving_rows``: a seq_len-0 row, a row whose valid pages all lie in
-    the first split) at the rule's count and at 1, 2, 3, 16 and 32 (one
-    page a split), through the private ``_launch(n_splits=...)``."""
-    import torch
-
-    from repro_torch.kernels.paged_decode_attention import (
-        _launch, paged_decode_attention_reference as plain)
-    sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_kernels_cuda as cases
-    n = 0
-    for quantized in (False, True):
-        key = "int8" if quantized else "float32"
-        todo = [(c, s) for c in edge_cases(quantized)[::5]
-                for s in (1, 2, 3, 5)]
-        todo += [(cases.serving_rows(rows, quantized=quantized, seed=rows), s)
-                 for rows in (8, 64) for s in (None, 1, 2, 3, 16, 32)]
-        for case, n_splits in todo:
-            args, kw = to_device(case, dev)
-            got = _launch(*args, **kw, n_splits=n_splits)
-            torch.cuda.synchronize()
-            want = plain(*args, **kw)
-            err = (got - want).abs().max().item()
-            worst[key] = max(worst[key], err)
-            n += 1
-            if not torch.allclose(got, want, **TOL):
-                fail(f"split kernel disagrees with its plain version ({key}, "
-                     f"{n_splits} splits, q {tuple(args[0].shape)}, pages "
-                     f"{tuple(args[1].shape)}): max abs err {err:.3g}")
-    log(f"B1 split cases vs plain version over {n} calls: max abs err fp32 "
-        f"{worst['float32']:.3g}, int8 {worst['int8']:.3g} (all phase-4 "
-        f"calls; atol = rtol = 1e-5)")
-
-
-# -- phases 5 and 19 -------------------------------------------------------
-
-_BASE = dict(max_num_seqs=8, max_tokens_per_step=64, prefill_chunk=16,
-             block_size=8)
-TOKEN_RUNS = {
-    "k1": (dict(_BASE, enable_prefix_cache=True, kv_capacity_tokens=512),
-           [(21, 3, 1), (40, 5, 2), (21, 2, 1), (9, 4, 3)]),
-    "k4_swap": (dict(_BASE, enable_prefix_cache=False,
-                     kv_capacity_tokens=96, preemption_policy="swap",
-                     swap_capacity_tokens=256, max_steps_per_dispatch=4),
-                [(40, 24, 1), (37, 24, 2)]),
-}
-
-
-def _drive_plans(cfg_kw: dict, specs, make) -> tuple:
-    """Drive ``specs`` (prompt length, max new tokens, token stream)
-    through the port's scheduler and ``make(cfg)``'s backend to the end;
-    returns the token streams, the backend and the speculative plans."""
-    from repro_torch.serving.request import Request
-    from repro_torch.serving.scheduler import Scheduler, SchedulerConfig
-    cfg = SchedulerConfig(**cfg_kw)
-    sched = Scheduler(cfg)
-    be = make(cfg)
-    reqs = []
-    for i, (n, max_new, stream) in enumerate(specs):
-        r = Request(text="", max_new_tokens=max_new, req_id=i)
-        r.prompt_tokens = [3 + (((stream << 10) + j) % 100)
-                           for j in range(n)]
-        sched.add_request(r)
-        reqs.append(r)
-    step = n_spec = 0
-    while sched.has_work and step < 500:
-        plan = sched.schedule()
-        if plan is None:
-            break
-        step += 1
-        n_spec += plan.speculative
-        for req in sched.complete_step(plan, float(step), be.execute(plan)):
-            be.release(req.req_id)
-    return [list(r.generated) for r in reqs], be, n_spec
-
-
-def _surrogate_kw(cfg, **extra) -> dict:
-    return dict(block_size=cfg.block_size, num_blocks=cfg.num_kv_blocks,
-                num_swap_blocks=cfg.num_swap_blocks,
-                copy_streams=cfg.copy_streams, vocab=128, **extra)
-
-
-def token_identity() -> None:
-    """Phase 5: the plans through ``TorchBackend`` on the card (its k-step
-    loop captured and replayed), on the card with the same step run k
-    times eagerly (``graphs`` set to None), and on the CPU; the streams
-    must be equal, and a run with k-step plans must have replayed its
-    graphs."""
-    import torch
-
-    from repro_torch.backend.torch_backend import TorchBackend
-    runs = {"cuda": ("cuda", True), "cuda eager": ("cuda", False),
-            "cpu": ("cpu", True)}
-
-    def leaf(cfg, device, graphs):
-        be = TorchBackend(device=device, max_steps=cfg.max_steps_per_dispatch,
-                          **_surrogate_kw(cfg))
-        if not graphs:
-            be.graphs = None
-        return be
-    for name, (cfg_kw, specs) in TOKEN_RUNS.items():
-        streams, replays = {}, 0
-        for run, (device, graphs) in runs.items():
-            streams[run], be, _ = _drive_plans(
-                cfg_kw, specs, lambda cfg: leaf(cfg, device, graphs))
-            if run == "cuda":
-                replays = be.graphs.replays
-        torch.cuda.synchronize()
-        for run, got in streams.items():
-            if got != streams["cpu"]:
-                fail(f"token streams differ between {run} and cpu ({name}): "
-                     f"{got} vs {streams['cpu']}")
-        if cfg_kw.get("max_steps_per_dispatch", 1) > 1 and not replays:
-            fail(f"token identity {name}: the k-step plans replayed no "
-                 f"captured step")
-        log(f"token identity {name}: cuda (captured) == cuda eager == cpu "
-            f"over {sum(map(len, streams['cuda']))} tokens, {replays} "
-            f"replayed steps")
-
-
-def composition_identity() -> None:
-    """Phase 19: phase 5's plans through every composition; speculative
-    runs take speculative_k 3 (their plans differ, their streams may
-    not)."""
-    from repro_torch.backend.cpu_decode import CpuDecodeBackend
-    from repro_torch.backend.hybrid import HybridBackend
-    from repro_torch.backend.torch_backend import TorchBackend
-    from repro_torch.spec import SpeculativeBackend
-
-    def torch_leaf(device, kv_dtype="float32"):
-        return lambda cfg: TorchBackend(
-            device=device, **_surrogate_kw(cfg, kv_dtype=kv_dtype))
-
-    def hybrid(device, kv_dtype="float32"):
-        return lambda cfg: HybridBackend(
-            TorchBackend(device=device, **_surrogate_kw(cfg)),
-            CpuDecodeBackend(**_surrogate_kw(cfg, kv_dtype=kv_dtype)),
-            copy_streams=cfg.copy_streams)
-
-    def speculative(device, draft_seed=0):
-        return lambda cfg: SpeculativeBackend(
-            CpuDecodeBackend(**_surrogate_kw(cfg, seed=draft_seed)),
-            TorchBackend(device=device, **_surrogate_kw(cfg)))
-
-    groups = {
-        "float32": {"torch cuda": (0, torch_leaf("cuda")),
-                    "torch cpu": (0, torch_leaf("cpu")),
-                    "hybrid cuda->cpu": (0, hybrid("cuda")),
-                    "spec k3 cuda<-cpu": (3, speculative("cuda")),
-                    # a draft with other weights: verify rejects drafts
-                    "spec k3 cuda<-cpu other draft": (
-                        3, speculative("cuda", draft_seed=7)),
-                    "spec k3 cpu<-cpu": (3, speculative("cpu"))},
-        "int8": {"hybrid cuda->cpu int8": (0, hybrid("cuda", "int8")),
-                 "hybrid cpu->cpu int8": (0, hybrid("cpu", "int8"))},
-    }
-    for run, (cfg_kw, specs) in TOKEN_RUNS.items():
-        for group, builds in groups.items():
-            streams, notes = {}, []
-            for name, (spec_k, make) in builds.items():
-                streams[name], be, n_spec = _drive_plans(
-                    dict(cfg_kw, speculative_k=spec_k), specs, make)
-                if spec_k:
-                    if n_spec == 0:
-                        fail(f"{name} ({run}): no speculative plan fired")
-                    notes.append(f"{name}: {n_spec} verify plans, "
-                                 f"{be.n_accepted}/{be.n_drafted} drafts "
-                                 f"accepted")
-                if hasattr(be, "n_handoffs"):
-                    notes.append(f"{name}: {be.n_handoffs} handoffs")
-            first = next(iter(streams.values()))
-            for name, got in streams.items():
-                if got != first:
-                    fail(f"composition streams differ ({run}, {group}): "
-                         f"{name} {got} vs {next(iter(streams))} {first}")
-            log(f"composition identity {run} {group}: "
-                + " == ".join(streams) + f" over {sum(map(len, first))} "
-                f"tokens; " + "; ".join(notes))
-    spec_identity_wide()
-
-
-def spec_identity_wide() -> None:
-    """Phase 19 at the serve runs' widths (tests/test_torch_kernels_cuda.py's
-    ``serve_width_streams``): speculative decode must equal stepwise decode
-    on the card where B1 splits a verify call and a decode step
-    differently."""
-    sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_kernels_cuda as cases
-    stepwise, spec, n_spec, be = cases.serve_width_streams("cuda")
-    if n_spec == 0:
-        fail("no speculative plan fired at the serve runs' widths")
-    if spec != stepwise:
-        fail(f"speculative and stepwise streams differ at the serve runs' "
-             f"widths: {spec} vs {stepwise}")
-    log(f"speculative == stepwise at qwen2-0.5b widths on the card over "
-        f"{sum(map(len, spec))} tokens: {n_spec} verify plans, "
-        f"{be.n_accepted}/{be.n_drafted} drafts accepted")
-
-
-# -- phase 6 ---------------------------------------------------------------
-
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     import torch
     for _ in range(warmup):
@@ -1025,14 +652,10 @@ def bound(args, kw) -> tuple:
               + 2 * q.numel() * 4                       # q in, out
               + bt.numel() * 4 + sl.numel() * 4)
     flops = 4 * (H // KV) * KV * walked * block * D     # QK^T and PV
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
-            else "operations", nbytes)
+    return (*_bound(nbytes, flops, FP32_FLOPS), nbytes)
 
 
-def time_kernel(quantized: bool, dev, launches: int, worst: dict,
-                rows: int = 64) -> dict:
+def time_kernel(quantized: bool, dev, launches: int, rows: int = 64) -> dict:
     """B1 at the serving shapes, ``rows`` rows of 32 full pages: held to
     its plain version, then timed by CUDA events (the wrapper's host work
     included) and by device time per call, beside its plain version, SDPA
@@ -1087,7 +710,7 @@ def time_kernel(quantized: bool, dev, launches: int, worst: dict,
         "" if rows == 64 else f"_b{rows}")
     log(f"{name}: B={B} H={H} KV={KV} D={D} block={block} "
         f"pages/row={bt.shape[1]}, {groups} x {n_splits} blocks: max abs err "
-        f"{err:.3g} (all cases {worst[key]:.3g}), kernel {ms:.4f} ms, plain "
+        f"{err:.3g}, kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, library {library_ms} ms, bound {bound_ms:.4f} "
         f"ms ({bound_by}, {nbytes} B), achieved "
         f"{nbytes / (ms * 1e-3) / 1e12:.3f} TB/s; device time per call "
@@ -1118,8 +741,7 @@ def time_verify(quantized: bool, dev, launches: int) -> dict:
         _launch, paged_decode_attention as kernel,
         paged_decode_attention_reference as plain,
         paged_decode_attention_split_reference as split_plain)
-    sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_kernels_cuda as cases
+    cases = card_cases("test_torch_kernels_cuda")
     args, kw = to_device(cases.verify_rows(8, 4, quantized=quantized), dev)
     q, k_pages, v_pages, bt, sl = args
     B, H, D = q.shape
@@ -1214,8 +836,7 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_graph_cuda import restore, stepwise, unequal_leaves
+    graph_cases = card_cases("test_torch_graph_cuda")
 
     cfg = get_config(arch)
     B, S, N = 8, prompt, 32
@@ -1289,14 +910,14 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
     multi_ms, outs, replay_counts = [], [], None
     for graph in (False, True, True, False):
         c = graph_c if graph else eager_c
-        restore(c, saved)
+        graph_cases.restore(c, saved)
         before = {k: w.launches for k, (w, _, _) in kernels.items()}
         torch.cuda.synchronize()
         start.record()
         if graph:
             fused, _, clen_i = model.decode_multi(first, c, S, N)
         else:
-            fused, clen_i = stepwise(model, first, c, S, N), S + N
+            fused, clen_i = graph_cases.stepwise(model, first, c, S, N), S + N
         end.record()
         torch.cuda.synchronize()
         multi_ms.append(start.elapsed_time(end) / N)
@@ -1312,7 +933,7 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
             fail(f"{arch}: {'decode_multi' if graph else 'the eager loop'} "
                  f"differs from stepwise decoding: {fused.tolist()} vs "
                  f"{steps.tolist()}")
-    differ = unequal_leaves(graph_c, eager_c)
+    differ = graph_cases.unequal_leaves(graph_c, eager_c)
     if differ:
         fail(f"{arch}: the captured decode_multi's cache differs from the "
              f"eager loop's in {differ}")
@@ -1420,28 +1041,22 @@ def moe_layer_calls(arch: str) -> int:
                for spec in stage.specs if spec.moe)
 
 
-# -- phase 33: the launch books against the profiler ---------------------------
+# -- phase 33: the serving leaf's k-step call ---------------------------------
 
-def graph_launches(dev, serve_run: dict) -> None:
-    """Phase 33: the serving leaf's k-step call timed eager and captured,
-    and what its saving a step makes of the captures and replays of
-    phase 3's fp32 serve run (``serve_run``); then the wrappers' launch
-    counters against the B1, B2 and B4 kernels ``torch.profiler`` records
-    over the same calls (tests/test_torch_graph_cuda.py's
-    ``counted_launches`` and ``profiled_launches``), for a replayed call
-    and an eager one: the serving leaf's k-step loop at the serve runs'
-    widths (8 rows, k 4) and qwen2-0.5b's ``decode_multi`` as published (8
-    rows of 64 prompt tokens, 8 steps) against its stepwise loop."""
+def leaf_call_times(dev, serve_run: dict) -> None:
+    """Phase 33: the serving leaf's k-step call (8 rows, k 4, qwen2-0.5b's
+    widths) timed eager and captured, and what its saving a step makes of
+    the captures and replays of phase 3's fp32 serve run
+    (``serve_run``)."""
     import torch
-    sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_graph_cuda as cases
+    cases = card_cases("test_torch_graph_cuda")
 
     graph_be, eager_be = cases.leaf_pair(dev)
     args = cases.loop_inputs(8, 4, cases.NUM_BLOCKS, seed=2)
     graph_be._decode_multi(*args, 4)                       # its capture
     eager_be._decode_multi(*args, 4)
-    # the serving leaf's k-step call (it ends in its host read), eager,
-    # captured, captured, eager: the median of 20 calls each
+    # the call ends in its host read: eager, captured, captured, eager, the
+    # median of 20 calls each
     call_ms = []
     for be in (eager_be, graph_be, graph_be, eager_be):
         walls = []
@@ -1461,236 +1076,20 @@ def graph_launches(dev, serve_run: dict) -> None:
         f"bucket's saving of {saved_ms:.3f} ms a step the replays saved "
         f"about {serve_run['graph_replays'] * saved_ms:.3f} ms (an estimate: "
         f"the serve run's buckets differ from this one)")
-    rows = {}
-    for what, be in (("serving leaf, replayed", graph_be),
-                     ("serving leaf, eager", eager_be)):
-        rows[what] = (cases.counted_launches(lambda: be._decode_multi(*args,
-                                                                      4)),
-                      cases.profiled_launches(lambda: be._decode_multi(*args,
-                                                                       4)))
-    model, first, cache, S, ext = cases.model_case(dev, "qwen2-0.5b",
-                                                   batch=8)
-    work = cases.clone(cache)
-    model.decode_multi(first, work, S, cases.N, ext)       # its capture
-    for graph in (True, False):
-
-        def run():
-            cases.restore(work, cache)
-            if graph:
-                model.decode_multi(first, work, S, cases.N, ext)
-            else:
-                cases.stepwise(model, first, work, S, cases.N, ext)
-        rows["qwen2-0.5b " + ("decode_multi, replayed" if graph
-                              else "stepwise loop, eager")] \
-            = (cases.counted_launches(run), cases.profiled_launches(run))
-    for what, (counted, profiled) in rows.items():
-        if not any(counted.values()):
-            fail(f"no launch of B1, B2 or B4 counted ({what})")
-        if counted != profiled:
-            fail(f"launch counters {counted} differ from the profiler's "
-                 f"{profiled} ({what})")
-        log(f"launch books ({what}): counters == profiler: {counted}")
-    del model, cache, work, graph_be, eager_be
+    del graph_be, eager_be
     torch.cuda.empty_cache()
-
-
-# -- phase 8: token identity of the model path --------------------------------
-
-def model_token_identity(dev, arch: str, **cut) -> None:
-    """``arch`` in float32 at full width (depth cut by ``cut``), the same
-    weights on the card and on the CPU: one 64-token prompt, 16 greedy
-    tokens; whisper's encoder takes 1,500 random frames, the same on both.
-
-    A moe arch is held to the near-tie rule (tests/test_torch_moe_cuda.py,
-    ``routing_report``): every moe layer's input is recorded on both
-    devices, and its expert sets are compared call by call, in order, up
-    to the first call whose sets differ; that difference must be a
-    near-tie (the CPU's k-th and (k+1)-th probabilities within 1e-5), else
-    the run fails.  A run with a near-tie is logged and counted and proves
-    nothing about the streams, so the next prompt seed is tried, at most
-    three; the first run without one must give equal streams."""
-    import copy
-
-    import numpy as np
-    import torch
-
-    from repro_torch.configs import get_config
-    from repro_torch.models import model as M
-    from repro_torch.models.moe import MoE
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_graph_cuda import stepwise
-    from test_torch_moe_cuda import NEAR_TIE, routing_report
-
-    cfg = get_config(arch).scaled(dtype="float32", **cut)
-    S, N = 64, 16
-    moe = cfg.moe is not None
-    t0 = time.perf_counter()
-    cpu = M.Model(cfg, generator=torch.Generator().manual_seed(0),
-                  device="cpu")
-    card = copy.deepcopy(cpu).to(dev)
-    ties = []
-    for seed in ((1, 2, 3) if moe else (1,)):
-        rng = np.random.default_rng(seed)
-        toks = rng.integers(0, cfg.vocab_size, (1, S)).astype(np.int32)
-        frames = (rng.standard_normal((1, cfg.encdec.n_encoder_ctx,
-                                       cfg.d_model)).astype(np.float32)
-                  if cfg.family == "audio" else None)
-        streams, calls = {}, {}
-        for name, model in (("cuda", card), ("cpu", cpu)):
-            calls[name] = []
-            hooks = [m.register_forward_hook(
-                lambda mod, args, out, rec=calls[name]: rec.append(
-                    (mod, args[0])))
-                for m in model.modules() if isinstance(m, MoE)]
-            try:
-                t = torch.from_numpy(toks).to(model.device)
-                extras = ({} if frames is None else
-                          {"frames": torch.from_numpy(frames).to(
-                              model.device)})
-                logits, cache = model.prefill(t, extras)
-                cache = M.grow_cache(cache, cfg, 1, S + N)
-                first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(
-                    torch.int32)
-                # the hooks see a moe layer's input only where Python runs
-                # it: on the card a moe arch records the stepwise loop, and
-                # its captured loop must then give the same stream
-                eager = moe and name == "cuda"
-                if eager:
-                    fused = stepwise(model, first[:, None], _clone(cache),
-                                     S, N)
-                else:
-                    fused, _, _ = model.decode_multi(first[:, None], cache,
-                                                     S, N)
-            finally:
-                for h in hooks:
-                    h.remove()
-            if eager:
-                again, _, _ = model.decode_multi(first[:, None], cache, S, N)
-                if not torch.equal(again, fused):
-                    fail(f"{arch}: captured decode_multi {again.tolist()} vs "
-                         f"the stepwise loop {fused.tolist()} on the card")
-            streams[name] = [int(first[0])] + fused[0].tolist()
-        tie = None
-        if len(calls["cuda"]) != len(calls["cpu"]):
-            fail(f"{arch}: {len(calls['cuda'])} moe calls on the card, "
-                 f"{len(calls['cpu'])} on the CPU")
-        for i, ((m_card, x_card), (m_cpu, x_cpu)) in enumerate(
-                zip(calls["cuda"], calls["cpu"])):
-            rep = routing_report(x_card, x_cpu, m_card.router.detach(),
-                                 m_cpu.router.detach(), m_cpu.dims)
-            if rep["differ"] > rep["near_ties"]:
-                fail(f"{arch} seed {seed}: moe call {i} of "
-                     f"{len(calls['cpu'])} routes {rep['differ']} of "
-                     f"{rep['tokens']} tokens to other experts on the card, "
-                     f"{rep['near_ties']} of them at a near-tie "
-                     f"(<= {NEAR_TIE}; smallest gap {rep['min_gap']})")
-            if rep["near_ties"]:
-                tie = (i, rep)
-                break
-        if moe:
-            same = streams["cuda"] == streams["cpu"]
-            log(f"model token identity {arch} seed {seed}: "
-                f"{len(calls['cpu'])} moe calls compared, "
-                + (f"near-tie at call {tie[0]}: {tie[1]}; streams "
-                   f"{'equal' if same else 'differ'}, next seed" if tie
-                   else "expert sets equal"))
-        if tie:
-            ties.append((seed, tie))
-            continue
-        if streams["cuda"] != streams["cpu"]:
-            fail(f"model tokens differ between cuda and cpu: "
-                 f"{streams['cuda']} vs {streams['cpu']}")
-        log(f"model token identity {arch} (float32, full width"
-            + (f", {cut}" if cut else "") + f"): cuda == cpu over "
-            f"{len(streams['cpu'])} tokens"
-            + (f", seed {seed} after {len(ties)} near-tie run(s)" if moe
-               else "") + f" ({time.perf_counter() - t0:.1f} s)")
-        break
-    else:
-        fail(f"{arch}: every prompt seed had a near-tie: {ties}")
-    del card, calls
-    torch.cuda.empty_cache()
-
-
-# -- phase 9: B2 and B3 against their plain versions ---------------------------
-
-def _attention_cases():
-    sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_attention_cuda as cases
-    return cases
-
-
-def attention_vs_plain(dev) -> dict:
-    """Worst abs error per (kernel, dtype) over the cases; fails outside
-    ``KERNEL_TOLS`` (float32 atol = rtol = 2e-5; bfloat16 rtol = 2e-2 with
-    atol = 8e-3 for B3 and 2e-3 for B2)."""
-    import torch
-
-    from repro_torch.kernels.decode_attention import (
-        decode_attention_reference)
-    from repro_torch.kernels.flash_attention import (
-        flash_attention_bhsd, flash_attention_reference)
-    cases = _attention_cases()
-    worst, excess = {}, {}
-    n = 0
-    for dname, dtype in cases.DTYPES.items():
-        todo = ([("flash", cases.to_torch(c, dev, dtype))
-                 for _, c in cases.flash_cases()]
-                + [("decode", cases.to_torch(c, dev, dtype))
-                   for _, c in cases.decode_cases()]
-                + [("flash", cases.model_flash(dev, dtype, window=w))
-                   for w in (None, 16)]
-                + [("decode", cases.model_decode(dev, dtype, window=w))
-                   for w in (None, 16)]
-                + [("flash", cases.model_flash(dev, dtype, B=8, S=512, H=H,
-                                               KV=KV))
-                   for H, KV in cases.MODEL_HEADS.values()]
-                + [("decode", cases.model_path_decode(dev, dtype, n, H=H,
-                                                      KV=KV))
-                   for H, KV in cases.MODEL_HEADS.values()
-                   for n in (513, 544)]
-                + [("decode", dict(cases.to_torch(c, dev, dtype),
-                                   n_splits=n))
-                   for _, c, n in cases.split_decode_cases()])
-        if dname == "bfloat16":
-            todo += [("flash", cases.wgmma_flash(dev, **p))
-                     for _, p in cases.wgmma_flash_cases()]
-        for kind, c in todo:
-            if kind == "flash":
-                got = cases.run_flash(flash_attention_bhsd, c)
-                torch.cuda.synchronize()
-                want = cases.run_flash(flash_attention_reference, c)
-            else:
-                got = cases.run_decode_splits(c, c.get("n_splits"))
-                torch.cuda.synchronize()
-                want = cases.run_decode(decode_attention_reference, c)
-            tol = cases.KERNEL_TOLS[kind][dname]
-            diff = (got.float() - want.float()).abs()
-            err = diff.max().item()
-            over = (diff - tol["rtol"] * want.float().abs()).max().item()
-            worst[(kind, dname)] = max(worst.get((kind, dname), 0.0), err)
-            excess[(kind, dname)] = max(excess.get((kind, dname), -1.0), over)
-            n += 1
-            if not torch.allclose(got.float(), want.float(), **tol):
-                fail(f"{kind} attention kernel disagrees with its plain "
-                     f"version ({dname}, q {tuple(c['q'].shape)}, k "
-                     f"{tuple(c['k'].shape)}, window {c['window']}): max "
-                     f"abs err {err:.3g}, max of |err| - rtol |plain| "
-                     f"{over:.3g}")
-    log(f"B2/B3 kernel vs plain version over {n} calls: max abs err "
-        + ", ".join(f"{k} {d} {e:.3g}" for (k, d), e in sorted(worst.items()))
-        + "; max of |err| - rtol |plain| "
-        + ", ".join(f"{k} {d} {e:.3g}" for (k, d), e in sorted(excess.items()))
-        + " (fp32 atol = rtol = 2e-5; bf16 rtol = 2e-2, atol = 8e-3 flash "
-        "and 2e-3 decode)")
-    return worst
 
 
 # -- phase 10: B2 and B3 times --------------------------------------------------
 
-def _bound(nbytes: float, flops: float) -> tuple:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+def _bound(nbytes: float, flops: float, flops_per_s=None) -> tuple:
+    """Least time in ms of a call that moves ``nbytes`` through the H100's
+    memory and does ``flops`` at ``flops_per_s`` (default its bf16
+    tensor-core peak; ``repro_torch.roofline.model.H100_SXM``), and which
+    of the two bounds it."""
+    from repro_torch.roofline.model import H100_SXM
+    t_bytes = nbytes / H100_SXM.hbm_bw * 1e3
+    t_ops = flops / (flops_per_s or H100_SXM.peak_flops) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1712,8 +1111,8 @@ def _held_to_plain(got, want, what: str, kind: str) -> float:
     the same inputs; fails outside the kernel's bfloat16 ``KERNEL_TOLS``."""
     import torch
     err = (got.float() - want.float()).abs().max().item()
-    if not torch.allclose(got.float(), want.float(),
-                          **_attention_cases().KERNEL_TOLS[kind]["bfloat16"]):
+    tol = card_cases("test_torch_attention_cuda").KERNEL_TOLS[kind]
+    if not torch.allclose(got.float(), want.float(), **tol["bfloat16"]):
         fail(f"{what}: kernel disagrees with its plain version at the timed "
              f"shape: max abs err {err:.3g}")
     return err
@@ -1771,7 +1170,7 @@ def time_flash(dev, launches: dict, B, S, H, KV, D, causal=True,
     from repro_torch.kernels.flash_attention import (
         flash_attention_bhsd, flash_attention_reference, route)
     plain = plain or flash_attention_reference
-    cases = _attention_cases()
+    cases = card_cases("test_torch_attention_cuda")
     c = cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H, KV=KV, D=D)
     c["causal"] = causal
     q, k, v = c["q"], c["k"], c["v"]
@@ -1830,7 +1229,7 @@ def time_decode(dev, launches: dict, B, Sc, H=14, KV=2, D=64,
     from repro_torch.kernels.decode_attention import (
         ROW_GROUP, choose_splits, decode_attention_bhd,
         decode_attention_reference, split_ranges, tile_slots)
-    cases = _attention_cases()
+    cases = card_cases("test_torch_attention_cuda")
     c = case or cases.model_decode(dev, torch.bfloat16, B=B, Sc=Sc, H=H,
                                    KV=KV, D=D)
     c["cache_len"] = torch.full((B,), Sc, dtype=torch.int32, device=dev)
@@ -1894,13 +1293,7 @@ def time_whisper(dev, launches: dict) -> list:
             time_decode(dev, launches, 8, 1500, 12, 12, 64)]
 
 
-# -- phase 11: B4 against its plain version -----------------------------------
-
-def _scan_cases():
-    sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_mamba_scan_cuda as cases
-    return cases
-
+# -- phase 15: B4 times -------------------------------------------------------
 
 def _scan_err(got, want, what: str) -> float:
     """Max abs error of (y, h_last) against the plain version's; fails
@@ -1915,64 +1308,6 @@ def _scan_err(got, want, what: str) -> float:
     return err
 
 
-def scan_vs_plain(dev) -> float:
-    """B4 on tests/test_torch_mamba_scan_cuda.py's cases (tests/
-    test_kernels.py's shapes, a ragged Di, nonzero h0, d_state 32 and 64)
-    and at falcon-mamba-7b's width at T = 1 (from a state, then writing
-    h_last over h0) and T = 512."""
-    import torch
-
-    from repro_torch.kernels.mamba_scan import (
-        mamba1_scan, mamba1_scan_reference)
-    cases = _scan_cases()
-    todo = [(cases.shape_id(s), cases.to_torch(cases.scan_case(*s), dev))
-            for s in cases.SHAPES]
-    todo += [(f"falcon-T{T}", cases.falcon_case(dev, T, with_h0=h0))
-             for T, h0 in ((1, True), (512, False))]
-    worst = 0.0
-    for name, c in todo:
-        got = cases.run(mamba1_scan, c)
-        torch.cuda.synchronize()
-        worst = max(worst, _scan_err(got, cases.run(mamba1_scan_reference, c),
-                                     name))
-    # a decode step's form: h_last written over h0
-    c = cases.falcon_case(dev, 1, with_h0=True, seed=2)
-    want = cases.run(mamba1_scan_reference, c)
-    h = c["h0"].clone()
-    got = mamba1_scan(c["x"], c["dt"], c["Bt"], c["Ct"], c["A"], h, h)
-    torch.cuda.synchronize()
-    if got[1] is not h:
-        fail("scan kernel did not write h_last where asked")
-    worst = max(worst, _scan_err(got, want, "falcon-T1-in-place"))
-    todo.append(("falcon-T1-in-place", c))
-    # the design's cases: every N with its lanes per channel at T on either
-    # side of the 16-step tile, and h_last over h0 at every N with 16-byte
-    # (Di 256) and 4-byte (Di 130) copies
-    for N, T in cases.STATE_CASES:
-        c = cases.to_torch(cases.scan_case(2, T, 200, N, True), dev)
-        got = cases.run(mamba1_scan, c)
-        torch.cuda.synchronize()
-        worst = max(worst, _scan_err(got, cases.run(mamba1_scan_reference, c),
-                                     f"N{N}-T{T}"))
-        todo.append((f"N{N}-T{T}", c))
-    for N in (8, 16, 32, 64):
-        for Di in (256, 130):
-            c = cases.to_torch(cases.scan_case(3, 1, Di, N, True, seed=5), dev)
-            want = cases.run(mamba1_scan_reference, c)
-            h = c["h0"].clone()
-            got = mamba1_scan(c["x"], c["dt"], c["Bt"], c["Ct"], c["A"], h, h)
-            torch.cuda.synchronize()
-            if got[1] is not h:
-                fail("scan kernel did not write h_last where asked")
-            worst = max(worst, _scan_err(got, want, f"N{N}-Di{Di}-in-place"))
-            todo.append((f"N{N}-Di{Di}-in-place", c))
-    log(f"B4 kernel vs plain version over {len(todo)} calls (y and h_last): "
-        f"max abs err {worst:.3g} (atol = rtol = 1e-4)")
-    return worst
-
-
-# -- phase 15: B4 times -------------------------------------------------------
-
 def time_scan(dev, launches: int) -> list:
     """B4 at phase 12's shapes: the prefill (8 x 512 from zero) and one
     decode step (8 x 1 from a state), each first held to its plain version
@@ -1981,7 +1316,7 @@ def time_scan(dev, launches: int) -> list:
     (no one PyTorch call computes the scan, so no library time)."""
     from repro_torch.kernels.mamba_scan import (
         mamba1_scan, mamba1_scan_reference)
-    cases = _scan_cases()
+    cases = card_cases("test_torch_mamba_scan_cuda")
     out = []
     for T, with_h0 in ((512, False), (1, True)):
         c = cases.falcon_case(dev, T, with_h0=with_h0, seed=1)
@@ -1998,10 +1333,7 @@ def time_scan(dev, launches: int) -> list:
         # per (b, t, d, n): dt*A, exp, *h, dtx*B, +, C*h, +; per (b, t, d):
         # dt*x
         flops = 7 * B * T * Di * N + B * T * Di
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
-        bound_ms = max(t_bytes, t_ops)
-        bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
         # the device's own time per call, apart from the wrapper's host
         # work between back-to-back launches (phase 10's method)
         dev_ms = _device_ms_per_call(lambda: cases.run(mamba1_scan, c))
@@ -2158,7 +1490,7 @@ def _chunked_is_plain(dev) -> None:
     import torch
 
     from repro_torch.kernels.flash_attention import flash_attention_reference
-    cases = _attention_cases()
+    cases = card_cases("test_torch_attention_cuda")
     for causal, window in ((True, None), (True, 64), (False, None)):
         c = cases.model_flash(dev, torch.float32, B=2, S=300, window=window)
         c["causal"] = causal
@@ -2267,75 +1599,7 @@ def contention() -> dict:
     return runs
 
 
-# -- phases 28-32: training ----------------------------------------------------
-
-def _train_cases():
-    sys.path.insert(0, str(ROOT / "tests"))
-    import test_torch_train_cuda as cases
-    return cases
-
-
-def backward_vs_plain(dev) -> None:
-    """Phases 28-29: B3's backward on tests/test_torch_train_cuda.py's
-    cases (tests/test_kernels.py's shapes; every head dim at S 1, 17 and
-    512 with causal, bidirectional and window-16 masks and GQA groups of 1,
-    7 and 48 through the model's views and a grad_output of other strides;
-    whisper's 8 x 1,500 encoder), float32 and bfloat16: the kernel forward's
-    lse against the plain log-sum-exp, the backward kernels against
-    ``flash_attention_bwd_reference`` on the same inputs, and
-    ``FlashAttentionFn`` against autograd of the plain forward
-    (``BWD_TOLS``); then B4's backward on the scan cases (nonzero h0 and
-    h_last gradients, every d_state at T 1, 15, 17, 40 and 512, and
-    falcon-mamba's 8 x 512 x 8192 x 16) against
-    ``mamba1_scan_bwd_reference`` and ``MambaScanFn`` against autograd of
-    the plain forward (``SCAN_TOL``)."""
-    import torch
-    cases = _train_cases()
-    worst, n = {}, 0
-    for dname, dtype in cases.DTYPES.items():
-        todo = [cases.numpy_bwd_case(c, dev, dtype)
-                for _, c in cases.attn_cases.flash_cases()]
-        todo += [cases.flash_bwd_case(dev, dtype, **p)
-                 for _, p in cases.flash_bwd_cases()]
-        todo.append(cases.whisper_bwd_case(dev, dtype))
-        for c in todo:
-            try:
-                errs = cases.flash_bwd_errors(c, dname)
-            except AssertionError as e:
-                fail(f"B3 backward disagrees ({dname}, q "
-                     f"{tuple(c['q'].shape)}, k {tuple(c['k'].shape)}, "
-                     f"causal {c['causal']}, window {c['window']}): {e}")
-            for k, e in errs.items():
-                worst[(dname, k)] = max(worst.get((dname, k), 0.0), e)
-            n += 1
-        torch.cuda.synchronize()
-    log(f"phase 28: B3 backward over {n} cases: max abs err "
-        + ", ".join(f"{d} {k} {e:.3g}" for (d, k), e in sorted(worst.items()))
-        + " (fp32 atol = rtol = 1e-4; bf16 rtol 2e-2, atol 8e-3, against "
-        "autograd of the plain forward scaled by the gradient's largest "
-        "magnitude; lse fp32 1e-4, bf16 1e-3)")
-    sc = cases.scan_cases
-    todo = [cases.scan_bwd_case(sc.to_torch(sc.scan_case(*s), dev), dev)
-            for s in sc.SHAPES]
-    todo += [cases.scan_bwd_case(sc.to_torch(sc.scan_case(2, T, 200, N, True),
-                                             dev), dev)
-             for N, T in cases.SCAN_BWD_STATES]
-    todo.append(cases.scan_bwd_case(sc.falcon_case(dev, 512, with_h0=False),
-                                    dev))
-    worst = {}
-    for c in todo:
-        try:
-            errs = cases.scan_bwd_errors(c)
-        except AssertionError as e:
-            fail(f"B4 backward disagrees (x {tuple(c['x'].shape)}, N "
-                 f"{c['A'].shape[1]}, h0 {c['h0'] is not None}): {e}")
-        for k, e in errs.items():
-            worst[k] = max(worst.get(k, 0.0), e)
-    torch.cuda.synchronize()
-    log(f"phase 29: B4 backward over {len(todo)} cases: max abs err "
-        + ", ".join(f"{k} {e:.3g}" for k, e in sorted(worst.items()))
-        + " (rtol 1e-4, atol 1e-4 x the gradient's largest magnitude)")
-
+# -- phases 30 and 32: training -----------------------------------------------
 
 TRAIN_ARCH = "qwen2-0.5b"
 
@@ -2489,36 +1753,6 @@ def train_in_process(dev, arch: str, wrappers: dict, *, batch: int = 8,
             "peak_bytes": peak, "busy": share, "launches": counts}
 
 
-# step 1 from the same weights: float32 sums in other orders; steps 2 and 3
-# start from weights that AdamW moved, where an element whose gradient is
-# near 0 moves by +-lr by the sign of a rounding error (tests/
-# test_torch_train_cuda.py, ``IDENTITY_TOL``)
-def train_identity(dev, arch: str, **cut) -> None:
-    """Phase 31: ``arch`` at full width in float32 with its depth cut, three
-    ``train_step``s of 2 x 64 tokens on the card and on the CPU from the
-    same weights and batches (TF32 off): losses and grad norms agree
-    within ``IDENTITY_TOL``."""
-    from repro_torch.configs import get_config
-    cases = _train_cases()
-    t0 = time.perf_counter()
-    cfg = get_config(arch).scaled(dtype="float32", **cut)
-    rows = cases.train_identity(arch, dev, cfg)
-    for i, (card, host) in enumerate(rows):
-        for k in ("loss", "ce", "grad_norm"):
-            rel = abs(card[k] - host[k]) / abs(host[k])
-            if not (math.isfinite(card[k])
-                    and rel <= cases.IDENTITY_TOL[i]):
-                fail(f"{arch} step {i + 1} {k}: card {card[k]!r}, CPU "
-                     f"{host[k]!r} (relative {rel:.3g} > "
-                     f"{cases.IDENTITY_TOL[i]})")
-    log(f"phase 31: {arch} float32 cut to {cut}, 3 steps of 2 x 64: "
-        + "; ".join(f"step {i + 1} loss card {c['loss']!r} cpu "
-                    f"{h['loss']!r}, grad norm card {c['grad_norm']!r} cpu "
-                    f"{h['grad_norm']!r}" for i, (c, h) in enumerate(rows))
-        + f" (tolerance {cases.IDENTITY_TOL}); {time.perf_counter() - t0:.1f}"
-        " s")
-
-
 def time_flash_bwd(dev, launches: int, B, S, H, KV, D, causal=True) -> dict:
     """Phase 32: B3's backward at one bf16 shape (the model's views, a
     grad_output laid out as the model's), held to its plain version on
@@ -2536,7 +1770,7 @@ def time_flash_bwd(dev, launches: int, B, S, H, KV, D, causal=True) -> dict:
     from repro_torch.kernels.flash_attention import (
         bwd_route, flash_attention_bhsd, flash_attention_bwd,
         flash_attention_bwd_reference)
-    cases = _train_cases()
+    cases = card_cases("test_torch_train_cuda")
     which = bwd_route(torch.bfloat16, D)
     c = cases.attn_cases.model_flash(dev, torch.bfloat16, B=B, S=S, H=H,
                                      KV=KV, D=D)
@@ -2619,7 +1853,7 @@ def time_scan_bwd(dev, launches: int) -> dict:
 
     from repro_torch.kernels.mamba_scan import (
         mamba1_scan, mamba1_scan_bwd, mamba1_scan_bwd_reference)
-    cases = _train_cases()
+    cases = card_cases("test_torch_train_cuda")
     c = cases.scan_bwd_case(cases.scan_cases.falcon_case(dev, 512,
                                                          with_h0=False), dev)
     args = [c[n] for n in ("x", "dt", "Bt", "Ct", "A")]
@@ -2644,10 +1878,7 @@ def time_scan_bwd(dev, launches: int) -> dict:
     ms, plain_ms = _time_pair(kernel, plain)
     nbytes = 4 * (5 * B * T * Di + 4 * B * T * N + 2 * Di * N)
     flops = 20 * B * T * Di * N
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
     dev_ms = _device_ms_per_call(kernel)
     fwd_ms = cuda_ms(lambda: mamba1_scan(*args, with_checkpoints=True))
     log(f"{name}: Di={Di} N={N}: max abs err {err:.3g}, kernel {ms:.4f} ms, "
@@ -2665,18 +1896,15 @@ def time_scan_bwd(dev, launches: int) -> dict:
 
 
 def training(dev) -> list:
-    """Phases 28-32 after the training CLI's runs: the backward kernels against
-    their plain versions, training in process at full width (qwen2-0.5b,
-    then falcon-mamba-7b cut to 8 of its 64 layers: with AdamW's float32
-    master, m and v the full depth needs about 116 GB), the card against
-    the CPU, and the backward kernels' times.  Returns the kernel
+    """Phases 30 and 32 after the training CLI's runs: training in process
+    at full width (qwen2-0.5b, then falcon-mamba-7b cut to 8 of its 64
+    layers: with AdamW's float32 master, m and v the full depth needs
+    about 116 GB), and the backward kernels' times.  Returns the kernel
     entries."""
     from repro_torch.kernels.flash_attention import (
         flash_attention_bhsd, flash_attention_bwd)
     from repro_torch.kernels.mamba_scan import mamba1_scan, mamba1_scan_bwd
     t0 = time.perf_counter()
-    backward_vs_plain(dev)
-    t1 = time.perf_counter()
     n = layer_calls(TRAIN_ARCH, "attn")
     qwen = train_in_process(dev, TRAIN_ARCH, {
         "flash_fwd": (flash_attention_bhsd, n),
@@ -2684,18 +1912,14 @@ def training(dev) -> list:
     falcon = train_in_process(dev, "falcon-mamba-7b", {
         "scan_fwd": (mamba1_scan, 8), "scan_bwd": (mamba1_scan_bwd, 8)},
         n_layers=8)
-    t2 = time.perf_counter()
-    train_identity(dev, TRAIN_ARCH, n_layers=2)
-    train_identity(dev, "falcon-mamba-7b", n_layers=2)
-    t3 = time.perf_counter()
+    t1 = time.perf_counter()
     entries = [time_flash_bwd(dev, qwen["launches"]["flash_bwd"], 8, 512, 14,
                               2, 64),
                time_flash_bwd(dev, qwen["launches"]["flash_bwd"], 8, 1500, 12,
                               12, 64, causal=False),
                time_scan_bwd(dev, falcon["launches"]["scan_bwd"])]
-    log(f"phases 28-29 took {t1 - t0:.1f} s, phase 30 in process "
-        f"{t2 - t1:.1f} s, phase 31 {t3 - t2:.1f} s, phase 32 "
-        f"{time.perf_counter() - t3:.1f} s")
+    log(f"phase 30 in process took {t1 - t0:.1f} s, phase 32 "
+        f"{time.perf_counter() - t1:.1f} s")
     return entries
 
 
@@ -2903,10 +2127,7 @@ def local_kernels(dev, mesh_launches: dict, scan_launches: int) -> list:
                        warmup=1)
     nbytes = 4 * (3 * B * T * Di + 2 * B * T * N + Di * N + B * Di * N)
     flops = 7 * B * T * Di * N + B * T * Di
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
     dev_ms = _device_ms_per_call(lambda: run(mamba1_scan), calls=5)
     log(f"{name}: max abs err {err:.3g} over the first {cut} steps, kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms (one call), bound "
@@ -2971,29 +2192,13 @@ def moe_kernels(dev, launches: dict) -> list:
     from repro_torch.kernels.moe_dispatch import (
         MAX_ASSIGNMENTS, moe_combine, moe_dispatch)
     from repro_torch.models import moe as TMoE
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_moe_cuda import experts, fused_against_plain
-
-    bf16_err = {}
-    for arch, n in MOE_SHAPES:
-        for dtype in (torch.float32, torch.bfloat16):
-            try:
-                r = fused_against_plain(arch, n, dtype, dev)
-            except AssertionError as e:
-                fail(f"{arch} over {n} tokens ({dtype}): the fused path "
-                     f"disagrees with the plain path: {e}")
-            log(f"moe {arch} over {n} tokens, {dtype}: fused against plain "
-                f"on seed {r['seed']}: buckets and their rows equal, gates "
-                f"rel err {r['gate_err']:.3g}, aux abs err "
-                f"{r['aux_err']:.3g}, outputs max abs err {r['y_err']:.3g}; "
-                f"routing {r['reports']}")
-            if dtype == torch.bfloat16:
-                bf16_err[arch, n] = r["y_err"]
+    moe_cases = card_cases("test_torch_moe_cuda")
 
     layers, layer_ms, slower = {}, {}, []
     with torch.no_grad():
         for arch, tokens in MOE_LAYER_TOKENS.items():
-            layer = layers[arch] = experts(arch, dev, torch.bfloat16)
+            layer = layers[arch] = moe_cases.experts(arch, dev,
+                                                     torch.bfloat16)
             dims = layer.dims
             params = {k: v.detach() for k, v in layer.named_parameters()}
             for n in tokens:
@@ -3025,6 +2230,16 @@ def moe_kernels(dev, launches: dict) -> list:
         x = torch.randn((n, d), device=dev, generator=torch.Generator(
             dev).manual_seed(1)).to(torch.bfloat16)
         with torch.no_grad():
+            params = {k: v.detach() for k, v in layer.named_parameters()}
+            y, y_plain = (fn(params, x, dims)[0].float() for fn in (
+                TMoE._moe_fused, TMoE._moe_gather))
+            err = (y - y_plain).abs().max().item()
+            tol = moe_cases.BF16_TOL                    # two bf16 steps
+            if not torch.allclose(y, y_plain, rtol=tol, atol=2 * tol * (
+                    y_plain.abs().max().item())):
+                fail(f"moe {arch} over {n} tokens: the fused layer disagrees "
+                     f"with the plain one at the timed inputs: max abs err "
+                     f"{err:.3g}")
             logits = x.float() @ layer.router
             xe, ge, slots, _ = moe_dispatch(logits, x, dims.n_experts, k, C)
             y_e = TMoE._expert_ffn(layer.w_gate, layer.w_up, layer.w_down,
@@ -3050,10 +2265,11 @@ def moe_kernels(dev, launches: dict) -> list:
             for kname, (kernel, plain, nbytes) in calls.items():
                 ms, plain_ms = _time_pair(kernel, plain)
                 dev_ms = _device_ms_per_call(kernel)
-                bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+                bound_ms = _bound(nbytes, 0)[0]
                 name = f"{kname}_bf16_{arch.split('-moe')[0]}_n{n}"
                 log(f"{name}: E_pad {E}, top-{k}, d {d}, C {C}, {kept} kept "
-                    f"assignments: kernel {ms:.5f} ms, plain {plain_ms:.5f} "
+                    f"assignments: the fused layer's max abs err {err:.3g}, "
+                    f"kernel {ms:.5f} ms, plain {plain_ms:.5f} "
                     f"ms, bound {bound_ms:.6f} ms (bytes; {nbytes} B); "
                     f"device time per call (profiler): kernel {dev_ms}; the "
                     f"layer replayed, plain {layer_ms[arch, n]['plain']:.5f} "
@@ -3064,13 +2280,34 @@ def moe_kernels(dev, launches: dict) -> list:
                     "replaces": "src/repro/models/moe.py (_route, _bucket, "
                                 "_combine: XLA, no kernel)",
                     "launches": launches[arch][kname],
-                    "max_abs_err": bf16_err[arch, n],
+                    "max_abs_err": err,
                     "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                     "bound_by": "bytes", "library_ms": None,
                     "dev_ms": dev_ms, "layer_ms": layer_ms[arch, n]})
     del layers
     torch.cuda.empty_cache()
     return out
+
+
+# -- phase 39: the card tests -------------------------------------------------
+
+def card_tests() -> None:
+    """Phase 39: every ``tests/test_torch_*_cuda.py`` under ``pytest -m
+    cuda`` in a subprocess (``--noconftest``: ``tests/conftest.py`` imports
+    jax); a failed test or a collection error exits non-zero and fails the
+    run, and so does a run in which none passed."""
+    files = sorted(str(f.relative_to(ROOT))
+                   for f in (ROOT / "tests").glob("test_torch_*_cuda.py"))
+    out, wall = run_module("pytest", "-q", "--noconftest", "-p",
+                           "no:cacheprovider", "-m", "cuda", *files,
+                           timeout=CARD_TESTS_TIMEOUT_S)
+    counts = {word: int(n) for n, word in
+              re.findall(r"(\d+) (\w+)", out.strip().splitlines()[-1])}
+    log(f"card tests ({len(files)} files): {counts.get('passed', 0)} passed, "
+        f"{counts.get('failed', 0)} failed, {counts.get('skipped', 0)} "
+        f"skipped in {wall:.1f} s")
+    if not counts.get("passed"):
+        fail("no card test passed")
 
 
 # -- phase 38: granite-4.0-h's first pipeline stage --------------------------
@@ -3112,8 +2349,7 @@ def hybrid_path(dev) -> list:
     from repro_torch.kernels.ssd import ssd_chunk
     from repro_torch.models import model as M
     from repro_torch.models.ssm import MAMBA2_COUNTS
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_graph_cuda import restore, stepwise, unequal_leaves
+    graph_cases = card_cases("test_torch_graph_cuda")
 
     full = get_config(HYBRID_ARCH)
     cfg = dataclasses.replace(full, n_layers=HYBRID_LAYERS,
@@ -3177,7 +2413,7 @@ def hybrid_path(dev) -> list:
     first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
     graph_c, eager_c = _clone(saved), _clone(saved)
     captured, _, clen = model.decode_multi(first, graph_c, S, N)  # capture
-    restore(graph_c, saved)
+    graph_cases.restore(graph_c, saved)
     before = {k: w.launches for k, w in kernels.items()}
     torch.cuda.synchronize()
     start.record()
@@ -3187,7 +2423,7 @@ def hybrid_path(dev) -> list:
     graph_ms = start.elapsed_time(end) / N
     replayed = {k: w.launches - before[k] for k, w in kernels.items()}
     start.record()
-    steps = stepwise(model, first, eager_c, S, N)
+    steps = graph_cases.stepwise(model, first, eager_c, S, N)
     end.record()
     torch.cuda.synchronize()
     eager_ms = start.elapsed_time(end) / N
@@ -3200,7 +2436,7 @@ def hybrid_path(dev) -> list:
             or int(clen) != S + N:
         fail(f"{HYBRID_ARCH}: decode_multi differs from stepwise decoding: "
              f"{fused.tolist()} vs {steps.tolist()}")
-    differ = unequal_leaves(graph_c, eager_c)
+    differ = graph_cases.unequal_leaves(graph_c, eager_c)
     if differ:
         fail(f"{HYBRID_ARCH}: the captured decode_multi's cache differs from "
              f"the eager loop's in {differ}")
@@ -3234,23 +2470,25 @@ def time_ssd(dev, launches: int, cfg) -> dict:
     ``bound_ms``, this kernel's design, float32 FMAs on CUDA cores
     (operations over 67 TFLOP/s, or bytes over 3.35 TB/s); and
     ``tc_bound_ms``, the same work at float32's accuracy on the tensor
-    cores by 3xTF32 (operations over ``TF32X3_FLOPS``, or bytes)."""
+    cores by 3xTF32 (operations over a third of TF32's dense rate, or
+    bytes)."""
     import torch
 
     from portbench.roofline_hybrid import ssd_flops
     from repro_torch.kernels.ssd import ssd_chunk
+    from repro_torch.roofline.model import H100_SXM
     from repro_torch.models.ssm import ssd_reference, ssm_dims
-    sys.path.insert(0, str(ROOT / "tests"))
-    from test_torch_ssd_cuda import AS_ACCURATE, relative_errors, ssd_inputs
+    ssd_cases = card_cases("test_torch_ssd_cuda")
 
     dims = ssm_dims(cfg.ssm, cfg.d_model)
     B, S, _ = HYBRID_SHAPE
     nh, hd, n, G, T = (dims.n_heads, dims.head_dim, dims.d_state,
                        dims.groups, dims.chunk)
-    inputs = ssd_inputs(dev, B, S, nh, G, h0=False, seed=38)
-    err = relative_errors(inputs, T)
-    if err["kernel_y"] > AS_ACCURATE * err["plain_y"] \
-            or err["kernel_h"] > AS_ACCURATE * err["plain_h"]:
+    inputs = ssd_cases.ssd_inputs(dev, B, S, nh, G, h0=False, seed=38)
+    err = ssd_cases.relative_errors(inputs, T)
+    limit = ssd_cases.AS_ACCURATE
+    if err["kernel_y"] > limit * err["plain_y"] \
+            or err["kernel_h"] > limit * err["plain_h"]:
         fail(f"ssd kernel less accurate than the plain path at the cell's "
              f"shape: {err}")
 
@@ -3267,10 +2505,11 @@ def time_ssd(dev, launches: int, cfg) -> dict:
     x_bytes = inputs["x"].element_size()
     nbytes = (B * S * (nh * hd * x_bytes + 2 * G * n * x_bytes + nh * 4)
               + B * S * nh * hd * 4 + B * nh * hd * n * 4)
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    tc_bound_ms = max(flops / TF32X3_FLOPS * 1e3, t_bytes)
+    bound_ms, bound_by = _bound(nbytes, flops, FP32_FLOPS)
+    # float32 products at float32's accuracy on the tensor cores: TF32
+    # dense (half the bf16 peak) over the three products of a 3xTF32 split
+    tf32x3 = H100_SXM.peak_flops / 2 / 3
+    tc_bound_ms = _bound(nbytes, flops, tf32x3)[0]
     by_kernel = _device_ms_by_kernel(kernel, calls=5)
     dev_ms = sum(by_kernel.values()) if by_kernel else None
     name = f"ssd_chunk_bf16_b{B}_s{S}_h{nh}"

@@ -21,8 +21,14 @@ run k times eagerly (a twin with ``graphs`` set to None; pools too, but
 for the scratch page, where masked rows' writes collide), and a call
 whose k shrinks replaying its bucket's graph; int8 makes no graph.  The wrappers' launch counters, replays included,
 against the B1, B2 and B4 kernels ``torch.profiler`` records over the same
-calls (``profiled_launches``; ``chip_smoke.py`` phase 33 uses it too).  A
+calls (``profiled_launches``), qwen2-0.5b's as published among them.  A
 step that syncs the host fails its capture and raises.
+
+Whole models on the card against the CPU (``IDENTITY_CUTS``): float32,
+TF32 off, every width as published and the depth cut so that the CPU's
+share stays short; the same weights on both, one 64-token prompt and 16
+greedy tokens, the card's by the captured ``decode_multi``.  A moe arch is
+held to the near-tie rule (``test_torch_moe_cuda.routing_report``).
 """
 from __future__ import annotations
 
@@ -238,26 +244,35 @@ def test_a_new_cache_storage_captures_anew(cuda_device):
     assert model.graphs.captures == 3
 
 
-@pytest.mark.cuda
-def test_model_counters_match_the_profiler(cuda_device):
-    for arch in ("qwen2-0.5b", "falcon-mamba-7b"):
-        model, first, cache, S, ext = model_case(cuda_device, arch,
-                                                 n_layers=2)
-        work = clone(cache)
-        model.decode_multi(first, work, S, N, ext)        # capture
-        for replayed in (True, False):          # replays, the eager loop
+# (arch, rows, layers): two layers of each kind, and qwen2-0.5b as published
+COUNTER_CASES = [("qwen2-0.5b", B, 2), ("falcon-mamba-7b", B, 2),
+                 ("qwen2-0.5b", 8, None)]
 
-            def run():
-                restore(work, cache)
-                if replayed:
-                    model.decode_multi(first, work, S, N, ext)
-                else:
-                    stepwise(model, first, work, S, N, ext)
-            counted = counted_launches(run)
-            assert counted == profiled_launches(run), (arch, replayed)
-            per_step = 2 if arch == "qwen2-0.5b" else 0
-            assert counted["B2"] == per_step * N
-            assert counted["B4"] == (2 - per_step) * N
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,rows,n_layers", COUNTER_CASES,
+                         ids=("qwen2-2-layers", "falcon-mamba-2-layers",
+                              "qwen2-published"))
+def test_model_counters_match_the_profiler(cuda_device, arch, rows,
+                                           n_layers):
+    cut = {} if n_layers is None else dict(n_layers=n_layers)
+    model, first, cache, S, ext = model_case(cuda_device, arch, batch=rows,
+                                             **cut)
+    work = clone(cache)
+    model.decode_multi(first, work, S, N, ext)            # capture
+    for replayed in (True, False):              # replays, the eager loop
+
+        def run():
+            restore(work, cache)
+            if replayed:
+                model.decode_multi(first, work, S, N, ext)
+            else:
+                stepwise(model, first, work, S, N, ext)
+        counted = counted_launches(run)
+        assert counted == profiled_launches(run), replayed
+        per_step = model.cfg.n_layers
+        assert counted["B2"] == (per_step if arch == "qwen2-0.5b" else 0) * N
+        assert counted["B4"] == (0 if arch == "qwen2-0.5b" else per_step) * N
 
 
 @pytest.mark.cuda
@@ -388,3 +403,106 @@ def test_serving_counters_match_the_profiler(cuda_device):
         assert counted == profiled_launches(
             lambda: be._decode_multi(*args, 4))
         assert counted == {"B1": 4, "B2": 0, "B4": 0}
+
+
+# ---------------------------------------------------------------------------
+# whole models, the card against the CPU
+# ---------------------------------------------------------------------------
+
+IDENTITY_CUTS = {
+    "qwen2-0.5b": {},
+    "falcon-mamba-7b": dict(n_layers=4),    # its 64 in float32: ~29 GB
+    "zamba2-1.2b": dict(n_layers=8),        # one period of 6 and a tail of 2
+    "granite-moe-3b-a800m": dict(n_layers=4),
+    "qwen2-moe-a2.7b": dict(n_layers=2),
+    "whisper-small": dict(n_layers=2, encdec=EncDecConfig(
+        n_encoder_layers=2, n_encoder_ctx=1500)),
+}
+IDENTITY_SEEDS = (1, 2, 3)      # the prompt seeds a moe arch may try
+
+
+@pytest.fixture
+def no_tf32():
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = old
+
+
+def greedy_stream(model, toks, frames, S: int, n: int, record: list):
+    """Prefill ``toks`` (whisper's encoder over ``frames``), then ``n``
+    greedy tokens: the first token and the stream.  Each moe layer's
+    input is appended to ``record`` as (layer, input).  The hooks see a
+    moe layer only where Python runs it, so on the card a moe arch's
+    recorded stream comes from the stepwise loop, and its captured loop
+    must then give the same tokens."""
+    from repro_torch.models.moe import MoE
+    cfg, dev = model.cfg, model.device
+    moe = cfg.moe is not None
+    hooks = [m.register_forward_hook(
+        lambda mod, args, out: record.append((mod, args[0])))
+        for m in model.modules() if isinstance(m, MoE)]
+    try:
+        extras = ({} if frames is None else
+                  {"frames": torch.from_numpy(frames).to(dev)})
+        logits, cache = model.prefill(torch.from_numpy(toks).to(dev), extras)
+        cache = M.grow_cache(cache, cfg, 1, S + n)
+        first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        if moe and dev.type == "cuda":
+            fused = stepwise(model, first[:, None], clone(cache), S, n)
+        else:
+            fused, _, _ = model.decode_multi(first[:, None], cache, S, n)
+    finally:
+        for h in hooks:
+            h.remove()
+    if moe and dev.type == "cuda":
+        again, _, _ = model.decode_multi(first[:, None], cache, S, n)
+        assert torch.equal(again, fused), (again.tolist(), fused.tolist())
+    return [int(first[0])] + fused[0].tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", sorted(IDENTITY_CUTS))
+def test_model_tokens_on_the_card_equal_the_cpu(cuda_device, no_tf32, arch):
+    """A moe arch's expert sets are compared call by call, in order, up to
+    the first call whose sets differ; that difference must be a near-tie
+    (the CPU's k-th and (k+1)-th probabilities within ``NEAR_TIE``).  A run
+    with one proves nothing about the streams, so the next prompt seed is
+    tried; the first run without one must give equal streams."""
+    import copy
+
+    from test_torch_moe_cuda import routing_report
+    cfg = get_config(arch).scaled(dtype="float32", **IDENTITY_CUTS[arch])
+    S, n = 64, 16
+    cpu = M.Model(cfg, generator=torch.Generator().manual_seed(0),
+                  device="cpu")
+    card = copy.deepcopy(cpu).to(cuda_device)
+    ties = []
+    for seed in IDENTITY_SEEDS if cfg.moe is not None else (1,):
+        rng = np.random.default_rng(seed)
+        toks = rng.integers(0, cfg.vocab_size, (1, S)).astype(np.int32)
+        frames = (rng.standard_normal((1, cfg.encdec.n_encoder_ctx,
+                                       cfg.d_model)).astype(np.float32)
+                  if cfg.family == "audio" else None)
+        calls = {"cuda": [], "cpu": []}
+        streams = {name: greedy_stream(model, toks, frames, S, n, calls[name])
+                   for name, model in (("cuda", card), ("cpu", cpu))}
+        assert len(calls["cuda"]) == len(calls["cpu"])
+        tie = None
+        for i, ((m_card, x_card), (m_cpu, x_cpu)) in enumerate(
+                zip(calls["cuda"], calls["cpu"])):
+            rep = routing_report(x_card, x_cpu, m_card.router.detach(),
+                                 m_cpu.router.detach(), m_cpu.dims)
+            assert rep["differ"] == rep["near_ties"], (seed, i, rep)
+            if rep["near_ties"]:
+                tie = (seed, i, rep)
+                break
+        if tie:
+            ties.append(tie)
+            continue
+        assert streams["cuda"] == streams["cpu"], seed
+        return
+    pytest.fail(f"every prompt seed had a near-tie: {ties}")

@@ -6,8 +6,8 @@ installed:
 
     python -m pytest -q --noconftest -m cuda tests/test_torch_kernels_cuda.py
 
-Besides ``make_case``'s rows at every GQA group and head dim, the split
-over pages:
+Besides ``make_case``'s rows at every GQA group and head dim and pages of
+8 and 16 slots, the split over pages:
 split counts from 1 to one page per split (through the private
 ``_launch(n_splits=...)``; the public wrapper always takes
 ``choose_splits``), the serving shapes at 8 and 64 rows, pages of other
@@ -19,7 +19,10 @@ Then the call shape of speculative verify (``verify_rows``: k+1 rows per
 request on one block table, seq_lens start+1 .. start+k+1), held to the
 plain version and to the split rule, and speculative decode on the card
 against stepwise greedy decode on the card, token for token, at the
-toy width and at the serve runs' (``serve_width_streams``).
+toy width and at the serve runs'; at the toy width the card's stepwise
+streams also equal the CPU's, for ``TorchBackend`` (its k-step plans
+replayed from captured graphs) and for the hybrid with an fp32 or int8
+decode tier.
 """
 from __future__ import annotations
 
@@ -95,8 +98,10 @@ def cuda_device():
 @pytest.mark.parametrize("quantized", (False, True), ids=("fp32", "int8"))
 @pytest.mark.parametrize("r", (1, 2, 7, 16))
 @pytest.mark.parametrize("D", (16, 32, 64, 128))
-def test_kernel_matches_plain_version_on_card(cuda_device, quantized, r, D):
-    case = make_case(r + D, r=r, D=D, block=16, quantized=quantized)
+@pytest.mark.parametrize("block", (8, 16))
+def test_kernel_matches_plain_version_on_card(cuda_device, block, quantized,
+                                              r, D):
+    case = make_case(r + D, r=r, D=D, block=block, quantized=quantized)
     args, kw = _torch(case)
     args = [a.to(cuda_device) for a in args]
     kw = {k: v.to(cuda_device) for k, v in kw.items()}
@@ -276,17 +281,18 @@ def test_kernel_at_the_verify_shape(cuda_device, quantized, k):
 
 
 def drive(cfg, backend, prompts):
-    """``prompts`` (prompt length, max new tokens) through the port's
-    scheduler and ``backend`` to the end; returns the token streams and
-    the number of speculative plans."""
+    """``prompts`` (prompt length, max new tokens[, stream]) through the
+    port's scheduler and ``backend`` to the end; prompts of one stream
+    share their tokens (by default each its own).  Returns the token
+    streams and the number of speculative plans."""
     from repro_torch.serving.request import Request
     from repro_torch.serving.scheduler import Scheduler
     sched = Scheduler(cfg)
     reqs = []
-    for i, (n, max_new) in enumerate(prompts):
+    for i, (n, max_new, *stream) in enumerate(prompts):
         r = Request(text="", max_new_tokens=max_new, req_id=i)
-        r.prompt_tokens = [3 + ((((i + 1) << 10) + j) % 100)
-                           for j in range(n)]
+        s = stream[0] if stream else i + 1
+        r.prompt_tokens = [3 + (((s << 10) + j) % 100) for j in range(n)]
         sched.add_request(r)
         reqs.append(r)
     specs = step = 0
@@ -302,13 +308,13 @@ def drive(cfg, backend, prompts):
     return [list(r.generated) for r in reqs], specs
 
 
-def serve_width_streams(device):
+@pytest.mark.cuda
+def test_speculative_streams_equal_stepwise_at_serve_widths(cuda_device):
     """Stepwise greedy decode and speculative decode (k 4, draft and target
-    of one seed, both on ``device``) at the serve runs' widths
-    (qwen2-0.5b's heads and vocab, block 64), 8 requests of 512 prompt
-    tokens and 16 new ones: on the card B1 splits a verify call (40 rows)
-    in fewer parts than a decode step (8 rows).  Returns both streams, the
-    speculative plans and the speculative backend."""
+    of one seed, both on the card) at the serve runs' widths (qwen2-0.5b's
+    heads and vocab, block 64), 8 requests of 512 prompt tokens and 16 new
+    ones: B1 splits a verify call (40 rows) in fewer parts than a decode
+    step (8 rows)."""
     from repro_torch.backend import ARCH_WIDTHS
     from repro_torch.backend.surrogate import draw_params
     from repro_torch.backend.torch_backend import TorchBackend
@@ -323,50 +329,88 @@ def serve_width_streams(device):
                                max_num_seqs=8, speculative_k=spec_k)
 
     def leaf(c):
-        return TorchBackend(device=device, params=params, block_size=64,
+        return TorchBackend(device=cuda_device, params=params, block_size=64,
                             num_blocks=c.num_kv_blocks, **widths)
     stepwise, _ = drive(cfg(0), leaf(cfg(0)), prompts)
-    sb = SpeculativeBackend(leaf(cfg(4)), leaf(cfg(4)))
-    spec, n_spec = drive(cfg(4), sb, prompts)
-    return stepwise, spec, n_spec, sb
-
-
-@pytest.mark.cuda
-def test_speculative_streams_equal_stepwise_at_serve_widths(cuda_device):
-    stepwise, spec, n_spec, _ = serve_width_streams(cuda_device)
+    spec, n_spec = drive(cfg(4), SpeculativeBackend(leaf(cfg(4)),
+                                                    leaf(cfg(4))), prompts)
     assert n_spec >= 1
     assert spec == stepwise
 
 
+_SMALL = dict(max_num_seqs=8, max_tokens_per_step=64, prefill_chunk=16,
+              block_size=8)
+# (scheduler settings, prompts) at the toy width (block 8, vocab 128):
+# swap churn; prompts that share a prefix through the prefix cache; and
+# k-step plans under swap churn, which the card's captured loop replays
+STREAM_RUNS = {
+    "swap": (dict(_SMALL, enable_prefix_cache=False,
+                  kv_capacity_tokens=12 * 8, preemption_policy="swap",
+                  swap_capacity_tokens=32 * 8),
+             ((12, 12), (20, 9), (9, 12))),
+    "prefix": (dict(_SMALL, enable_prefix_cache=True,
+                    kv_capacity_tokens=512),
+               ((21, 3, 1), (40, 5, 2), (21, 2, 1), (9, 4, 3))),
+    "k4-swap": (dict(_SMALL, enable_prefix_cache=False,
+                     kv_capacity_tokens=96, preemption_policy="swap",
+                     swap_capacity_tokens=256, max_steps_per_dispatch=4),
+                ((40, 24, 1), (37, 24, 2))),
+}
+# (target, the cpu draft's seed: the target's, another, or None for no
+# speculative decode)
+STREAM_TARGETS = {"torch": ("torch", 0), "torch-other-draft": ("torch", 7),
+                  "hybrid": ("hybrid", 0), "hybrid-other-draft": ("hybrid", 7),
+                  "hybrid-int8": ("hybrid-int8", None)}
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("target", ("torch", "hybrid"))
-def test_speculative_streams_equal_stepwise_on_card(cuda_device, target):
+@pytest.mark.parametrize("run", sorted(STREAM_RUNS))
+@pytest.mark.parametrize("target,draft_seed", STREAM_TARGETS.values(),
+                         ids=STREAM_TARGETS)
+def test_speculative_streams_equal_stepwise_on_card(cuda_device, target,
+                                                    draft_seed, run):
     """Greedy speculative decode with the target on the card and a cpu
-    draft emits stepwise greedy decode's tokens on the card, under swap
-    churn; verify calls and decode steps reach B1 with other row counts."""
+    draft (of the target's weights, or of other weights, so that verify
+    rejects) emits stepwise greedy decode's tokens on the card; verify
+    calls and decode steps reach B1 with other row counts.  That stepwise
+    stream equals the same composition's with the CPU in the card's place:
+    ``TorchBackend``, its k-step plans replayed from captured graphs; the
+    hybrid (prefill on the card, decode on the CPU, fp32 or an int8 decode
+    tier) against the all-CPU hybrid.  An int8 decode tier runs no
+    speculative decode here: a rejected draft's K/V can raise a page's
+    amax, which requantizes the page's earlier slots, so its streams may
+    leave stepwise decode's."""
     from repro_torch.backend.cpu_decode import CpuDecodeBackend
     from repro_torch.backend.hybrid import HybridBackend
     from repro_torch.backend.torch_backend import TorchBackend
     from repro_torch.serving.scheduler import SchedulerConfig
     from repro_torch.spec import SpeculativeBackend
+    settings, prompts = STREAM_RUNS[run]
+    kv_dtype = "int8" if target == "hybrid-int8" else "float32"
 
-    def run(spec_k: int):
-        cfg = SchedulerConfig(
-            max_num_seqs=8, max_tokens_per_step=64, prefill_chunk=16,
-            enable_prefix_cache=False, block_size=8,
-            kv_capacity_tokens=12 * 8, preemption_policy="swap",
-            swap_capacity_tokens=32 * 8, speculative_k=spec_k)
+    def run_on(device, spec_k: int):
+        cfg = SchedulerConfig(**settings, speculative_k=spec_k)
         kw = dict(block_size=8, num_blocks=cfg.num_kv_blocks,
-                  num_swap_blocks=cfg.num_swap_blocks, vocab=128)
-        be = TorchBackend(device=cuda_device, **kw)
-        if target == "hybrid":
-            be = HybridBackend(be, CpuDecodeBackend(**kw))
+                  num_swap_blocks=cfg.num_swap_blocks,
+                  copy_streams=cfg.copy_streams, vocab=128)
+        be = leaf = TorchBackend(device=device,
+                                 max_steps=cfg.max_steps_per_dispatch, **kw)
+        if target != "torch":
+            be = HybridBackend(be, CpuDecodeBackend(**kw, kv_dtype=kv_dtype),
+                               copy_streams=cfg.copy_streams)
         if spec_k:
-            be = SpeculativeBackend(CpuDecodeBackend(**kw), be)
-        return drive(cfg, be, ((12, 12), (20, 9), (9, 12)))
+            be = SpeculativeBackend(CpuDecodeBackend(**kw, seed=draft_seed),
+                                    be)
+        streams, n_spec = drive(cfg, be, prompts)
+        return streams, n_spec, leaf
 
-    stepwise, _ = run(0)
+    stepwise, _, leaf = run_on(cuda_device, 0)
+    if target == "torch" and settings.get("max_steps_per_dispatch", 1) > 1:
+        assert leaf.graphs.replays > 0
+    assert stepwise == run_on("cpu", 0)[0]
+    if draft_seed is None:
+        return
     before = paged_decode_attention.launches
-    spec, n_spec = run(4)
+    spec, n_spec, _ = run_on(cuda_device, 4)
     assert n_spec >= 1 and paged_decode_attention.launches > before
     assert spec == stepwise

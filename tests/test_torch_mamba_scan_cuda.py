@@ -11,7 +11,8 @@ The cases: tests/test_kernels.py's three shapes, a ragged channel count
 (not a multiple of the kernel's 128-channel block), nonzero initial states,
 d_state 32 and 64, and falcon-mamba-7b's width (8 sequences, d_inner 8192,
 d_state 16) at T = 1 from a carried state (a decode step) and at T = 512
-(the prefill); h_last written over h0, as a decode step writes it.  For
+(the prefill); h_last written over h0, as a decode step writes it, at
+falcon-mamba-7b's width too.  For
 the kernel's design: every d_state with its lanes per channel (N / 8) at T
 = 1, 15, 17 and 40 (the tiles are 16 steps), h_last over h0 at every
 d_state with 16-byte and 4-byte copies, and bitwise-equal repeated
@@ -130,12 +131,14 @@ def test_scan_kernel_takes_strided_projections(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("T", [1, 33])
-def test_scan_kernel_writes_the_state_in_place(cuda_device, T):
+@pytest.mark.parametrize("T,falcon", [(1, False), (33, False), (1, True)],
+                         ids=["1", "33", "falcon-1"])
+def test_scan_kernel_writes_the_state_in_place(cuda_device, T, falcon):
     """h_last written over h0, as a decode step advances its cache entry
-    (T = 1), and over a longer run: each thread reads its state before it
-    writes it."""
-    c = to_torch(scan_case(2, T, 200, 16, True), cuda_device)
+    (T = 1, and at falcon-mamba-7b's width), and over a longer run: each
+    thread reads its state before it writes it."""
+    c = (falcon_case(cuda_device, T, with_h0=True, seed=2) if falcon
+         else to_torch(scan_case(2, T, 200, 16, True), cuda_device))
     y_want, h_want = run(mamba1_scan_reference, c)
     h0 = c["h0"].clone()
     before = mamba1_scan.launches

@@ -26,8 +26,8 @@ installed:
   (``torch.cuda.set_sync_debug_mode("error")``), so that a decode loop
   stays on the device.
 
-``routing_report`` also serves ``chip_smoke.py``'s phase 24, and
-``fused_against_plain`` its phase 37.
+``routing_report`` also serves tests/test_torch_graph_cuda.py's whole
+models on the card against the CPU.
 
 The fused path (``kernels.moe_dispatch``: one dispatch and one combine
 kernel around the experts' products), against the plain path on the same
@@ -235,22 +235,24 @@ def fused_sets_report(layer, x) -> dict:
             "near_ties": int((differ & (gap <= NEAR_TIE)).sum())}
 
 
-def fused_against_plain(arch: str, n_tokens: int, dtype, device) -> dict:
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
+                         ids=("f32", "bf16"))
+@pytest.mark.parametrize("arch,n_tokens", FUSED_CASES,
+                         ids=[f"{a[:5]}-{n}" for a, n in FUSED_CASES])
+def test_fused_path_matches_the_plain_path(cuda_device, no_tf32, arch,
+                                           n_tokens, dtype):
     """The fused path against the plain path (``_moe_gather``; ``_route``
     and ``_bucket`` for the buckets) on the same card, weights and inputs,
     at ``arch``'s widths over ``n_tokens`` tokens, on the first of
-    ``SEEDS`` without a near-tie, at the limits of the module docstring.
-    Returns {"seed", "reports", "gate_err" (relative), "aux_err",
-    "y_err"}; raises AssertionError where the near-tie rule or a limit
-    breaks, or where every seed had a near-tie.  Also serves
-    ``chip_smoke.py``'s phase 37."""
+    ``SEEDS`` without a near-tie, at the limits of the module docstring."""
     from repro_torch.kernels.moe_dispatch import moe_dispatch
     reports = []
     for seed in SEEDS:
-        layer = experts(arch, device, dtype, seed)
+        layer = experts(arch, cuda_device, dtype, seed)
         dims, params = layer.dims, params_of(layer)
-        x = torch.randn((n_tokens, dims.d_model), device=device,
-                        generator=torch.Generator(device).manual_seed(
+        x = torch.randn((n_tokens, dims.d_model), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(
                             seed + 10)).to(dtype)
         C = TMoE._capacity(n_tokens, dims)
         with torch.no_grad():
@@ -279,22 +281,10 @@ def fused_against_plain(arch: str, n_tokens: int, dtype, device) -> dict:
             torch.testing.assert_close(
                 y.float(), y_p.float(), rtol=BF16_TOL,
                 atol=2 * BF16_TOL * y_p.float().abs().max().item())
-        return {"seed": seed, "reports": reports,
-                "gate_err": ((ge - ge_p).abs()
-                             / ge_p.abs().clamp_min(1e-30)).max().item(),
-                "aux_err": (aux - aux_p).abs().item(),
-                "y_err": (y.float() - y_p.float()).abs().max().item()}
-    raise AssertionError(f"every seed had a near-tie: {reports}")
+        return
+    pytest.fail(f"every seed had a near-tie: {reports}")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", (torch.float32, torch.bfloat16),
-                         ids=("f32", "bf16"))
-@pytest.mark.parametrize("arch,n_tokens", FUSED_CASES,
-                         ids=[f"{a[:5]}-{n}" for a, n in FUSED_CASES])
-def test_fused_path_matches_the_plain_path(cuda_device, no_tf32, arch,
-                                           n_tokens, dtype):
-    fused_against_plain(arch, n_tokens, dtype, cuda_device)
 
 
 @pytest.mark.cuda

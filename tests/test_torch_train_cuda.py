@@ -37,6 +37,10 @@ thousands of channels and steps whose float32 rounding grows with the
 terms, not with the (possibly cancelled) sum.
 
 Both must give bitwise-equal gradients on two calls (no atomics).
+
+Three train steps of qwen2-0.5b and falcon-mamba-7b on the card against
+the CPU, float32 with TF32 off, from the same weights and batches: at the
+tiny configs and at every width as published cut to two layers.
 """
 from __future__ import annotations
 
@@ -487,10 +491,15 @@ IDENTITY_TOL = (1e-5, 1e-4, 1e-4)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_layers", (None, 2),
+                         ids=("tiny", "published-widths-2-layers"))
 @pytest.mark.parametrize("arch", ("qwen2-0.5b", "falcon-mamba-7b"))
-def test_train_steps_on_the_card_match_the_cpu(cuda_device, arch):
+def test_train_steps_on_the_card_match_the_cpu(cuda_device, arch, n_layers):
+    from repro_torch.configs import get_config
+    cfg = (None if n_layers is None else
+           get_config(arch).scaled(dtype="float32", n_layers=n_layers))
     before = (flash_attention_bwd.launches, mamba1_scan_bwd.launches)
-    rows = train_identity(arch, cuda_device)
+    rows = train_identity(arch, cuda_device, cfg)
     after = (flash_attention_bwd.launches, mamba1_scan_bwd.launches)
     assert after[arch == "falcon-mamba-7b"] > before[arch == "falcon-mamba-7b"]
     for i, (card, host) in enumerate(rows):
