@@ -99,11 +99,14 @@ fails:
    launched at least 32 times per prefill, all on its ``wgmma`` route,
    and B2 at least 32 times per decode step; the experts' dispatch and
    combine kernels (``kernels.moe_dispatch``) 32 times each per decode
-   step of 8 rows (the prefill's 4,096 tokens take the plain path);
+   step of 8 rows, and the prefill's 4,096 tokens on the routed kernels
+   (``kernels.moe_routed``: 3 + 1 launches a layer, ``moe.PATH_CALLS``
+   "routed" 32 and no other path);
 22. qwen2-moe-a2.7b as published (24 layers, d_model 2048, 16/16 heads at
    D 128, 60 experts top-4 with d_ff 1408 and 4 shared experts, vocab
    151,936, untied, bf16; about 28.6 GB of weights, freed afterwards), the
-   same run with 24 launches per prefill and per step;
+   same run with 24 launches per prefill and per step (its prefill routed
+   in all 24 layers);
 23. the encoder-decoder path: whisper-small as published (12 encoder and
    12 decoder layers, d_model 768, 12/12 heads at D 64, vocab 51,865,
    bf16), 8 x 1,500 random frames for its encoder, a decoder prompt of
@@ -201,19 +204,30 @@ fails:
    timed once at the full length); each timed beside its plain version
    and its bound as phases 10 and 15 time them; B3's and B2's launches are
    phase 35's, B4's phase 12's;
-37. the experts' dispatch and combine kernels (after phases 21-22): one
-   moe layer at granite-moe's widths over 64 and 8 tokens (the decode
-   steps of the gen-decode and gen-prefill cells) and qwen2-moe-a2.7b's
-   over 64, bf16: the fused layer held to the plain one on the timed inputs
-   (two bf16 steps, ``tests/test_torch_moe_cuda.py``'s limit; that error
-   is the entries' ``max_abs_err``); then each kernel timed at those
-   shapes beside its plain counterpart (``_route`` and ``_bucket``, router
-   product included, for the dispatch; ``_combine`` for the combine) and its
-   bound (bytes over 3.35 TB/s); then the whole layer, plain path against
-   fused, each captured in a CUDA graph and timed over 300 replays, at
-   granite-moe's 8, 64, 128 and 256 tokens and qwen2-moe's 64, 128, 256 and
-   512 (up to ``MAX_ASSIGNMENTS``, the fused path's limit), and the fused
-   layer must be the faster at each;
+37. the experts' dispatch and combine kernels (after phases 21-22 and
+   38).  The decode-sized ones (``kernels.moe_dispatch``): one moe layer
+   at granite-moe's widths over 64 and 8 tokens (the decode steps of the
+   gen-decode and gen-prefill cells) and qwen2-moe-a2.7b's over 64, bf16:
+   the fused layer held to the plain one on the timed inputs (two bf16
+   steps, ``tests/test_torch_moe_cuda.py``'s limit; that error is the
+   entries' ``max_abs_err``); then each kernel timed at those shapes
+   beside its plain counterpart (``_route`` and ``_bucket``, router
+   product included, for the dispatch; ``_combine`` for the combine) and
+   its bound (bytes over 3.35 TB/s); then the whole layer, plain path
+   against fused, each captured in a CUDA graph and timed over 300
+   replays, at granite-moe's 8, 64, 128 and 256 tokens and qwen2-moe's
+   64, 128, 256 and 512 (up to ``MAX_ASSIGNMENTS``, the fused path's
+   limit), and the fused layer must be the faster at each.  The routed
+   ones (``kernels.moe_routed``) at the cells' shapes: granite-4.0-h's
+   widths over 65,536 tokens (gen-hybrid-16k's prefill) and 4 (its
+   decode step), granite-moe's over 32,640 (gen-prefill's prefill) and
+   16,384 (gen-decode's), bf16: the routed layer held to the plain one
+   on the timed inputs as above; the whole layer, plain against routed,
+   as a replayed graph at 4 tokens and eagerly by CUDA events (best of
+   two rounds of five) at the prefills, the routed layer the faster at
+   each; then the dispatch (route, offsets and fill; its three kernels'
+   device time each) and the combine, each timed beside its plain
+   counterpart and its bound as above;
 38. granite-4.0-h-small's first pipeline stage (port-only: layers 0-19,
    18 Mamba-2 and 2 NoPE attention layers, 72 experts top-10 and a shared
    expert each; bf16, every width as published, 16.3 B parameters) at
@@ -222,12 +236,15 @@ fails:
    ``Model.prefill`` over 4 x 16,384 tokens, then 64 tokens by the
    captured ``decode_multi`` and by the stepwise loop, tokens and caches
    equal; the launch counts set to 0 before the prefill and read: B3 2 on
-   ``wgmma`` in the prefill, B2 2 a replayed step, the experts' kernels
-   none (the plain route), the SSD kernel 18 in the prefill and none in
-   decode, Mamba-2 18 calls, 18 x 64 SSD chunks and 18 SSDs on the
-   kernel; then B3 at 4 x 16,384 (held to the chunked plain version) and
-   B2 at 4 rows over 16,448 slots, GQA 32/8 at D 128, held to their plain
-   versions and timed as phase 10 times them; then the SSD kernel at one
+   ``wgmma`` in the prefill, B2 2 a replayed step, the decode-sized moe
+   kernels none, the routed ones 3 + 1 a layer in the prefill and in each
+   replayed step, ``moe.PATH_CALLS`` "routed" 20 of 20 in the prefill and
+   a multiple of 20 in ``decode_multi``'s capture (no other path), the
+   SSD kernel 18 in the prefill and none in decode, Mamba-2 18 calls,
+   18 x 64 SSD chunks and 18 SSDs on the kernel; then B3 at 4 x 16,384
+   (held to the chunked plain version) and B2 at 4 rows over 16,448
+   slots, GQA 32/8 at D 128, held to their plain versions and timed as
+   phase 10 times them; then the SSD kernel at one
    layer of the prefill (4 x 16,384, 128 heads of 64, d_state 128),
    held to the plain path against a float64 evaluation by the card
    test's rule and timed beside it, its two bounds (this design's, float32
@@ -251,8 +268,9 @@ The line before the last is the ``kernels`` JSON (B1-B4, as timed in the
 phases above, and the backward kernels ``B3-bwd``, whose entries name the
 route their launch counts moved on as ``kernel_route``, and ``B4-bwd``,
 and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``;
-phase 37's dispatch and combine, whose entries carry the whole
-layer's replayed times, plain and fused, as ``layer_ms``; and phase 38's
+phase 37's dispatch and combine, decode-sized and routed, whose entries
+carry the whole layer's times, plain and fused or routed, as
+``layer_ms``; and phase 38's
 B3, B2 and the SSD kernel at granite-4.0-h's shapes); the last line
 is ``{"ok": true, "device": {...}}``.
 """
@@ -459,7 +477,7 @@ def main() -> None:
     # 38. granite-4.0-h's first stage at gen-hybrid-16k's shapes, first on
     # the card: its prefill's ~59 GiB peak wants an unfragmented allocator
     with phase("38 (granite-4.0-h-small, 20 layers, 4 x 16,384)"):
-        hybrid_entries = hybrid_path(dev)
+        hybrid_entries, hybrid_launches = hybrid_path(dev)
 
     # 6. times at the serving shapes
     with phase("6 (B1 times)"):
@@ -505,6 +523,8 @@ def main() -> None:
     # 21.-24. the moe and encoder-decoder paths, B3 and B2 at whisper's
     # shapes
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    from repro_torch.kernels.moe_routed import (
+        moe_routed_combine, moe_routed_dispatch)
     moe_launches = {}
     for i, arch in ((21, "granite-moe-3b-a800m"), (22, "qwen2-moe-a2.7b")):
         with phase(f"{i} ({arch})"):
@@ -513,8 +533,12 @@ def main() -> None:
                 dev, arch, {"flash": (flash_attention_bhsd, n, 0),
                             "decode": (decode_attention_bhd, 0, n),
                             "moe_dispatch": (moe_dispatch, 0, m),
-                            "moe_combine": (moe_combine, 0, m)},
-                routes={"wgmma": n})
+                            "moe_combine": (moe_combine, 0, m),
+                            "moe_routed_dispatch": (moe_routed_dispatch,
+                                                    3 * m, 0),
+                            "moe_routed_combine": (moe_routed_combine, m,
+                                                   0)},
+                routes={"wgmma": n}, prefill_paths={"routed": m})
     with phase("23 (whisper-small)"):
         enc, dec = (layer_calls("whisper-small", kind)
                     for kind in ("enc_attn", "dec_attn"))
@@ -542,9 +566,11 @@ def main() -> None:
         mesh_launches = mesh_path(dev)
     with phase("36 (B3, B2, B4 at pod_16x16's local shapes)"):
         entries += local_kernels(dev, mesh_launches, ssm_launches["scan"])
-    # 37. the experts' dispatch and combine
+    # 37. the experts' dispatch and combine, decode-sized and routed
     with phase("37 (moe dispatch and combine)"):
         entries += moe_kernels(dev, moe_launches)
+        entries += routed_kernels(dev, {**moe_launches,
+                                        HYBRID_ARCH: hybrid_launches})
     entries += hybrid_entries
     log(f"the run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
@@ -812,7 +838,7 @@ def _clone(tree):
 
 
 def model_path(dev, arch: str, kernels: dict, routes=None, *,
-               prompt: int = 512, extras=None) -> dict:
+               prompt: int = 512, extras=None, prefill_paths=None) -> dict:
     """``arch`` as published (bf16, full width): prefill 8 x ``prompt``,
     then 32 tokens by the stepwise ``decode_step`` loop (eager) and by
     decode_multi, whose step is a captured CUDA graph replayed
@@ -828,11 +854,15 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
     frames).  ``kernels`` maps a name to (wrapper, launches wanted per
     prefill, per decode step); ``routes`` maps a route of B3 to the
     launches wanted on it per prefill, and then no other route may launch
-    in prefill.  Returns each kernel's launches over this run (every count
+    in prefill; ``prefill_paths`` maps a moe path to the rise of its
+    ``moe.PATH_CALLS`` entry the timed prefill must show, the others
+    unmoved.  Returns each kernel's launches over this run (every count
     set to 0 just before it, read just after)."""
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     import numpy as np
     import torch
+
+    from repro_torch.models.moe import PATH_CALLS
 
     from repro_torch.configs import get_config
     from repro_torch.models import model as M
@@ -864,11 +894,16 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
     by_route = flash_attention_bhsd.launches_by_route
     for r in by_route:
         by_route[r] = 0
+    paths0 = dict(PATH_CALLS)
     start.record()
     logits, cache = model.prefill(toks, extras)
     end.record()
     torch.cuda.synchronize()
     prefill_ms = start.elapsed_time(end)
+    paths = {k: v - paths0[k] for k, v in PATH_CALLS.items() if v != paths0[k]}
+    if prefill_paths is not None and paths != prefill_paths:
+        fail(f"{arch}: the prefill's moe layers took the paths {paths}, "
+             f"want {prefill_paths}")
     in_prefill = {k: w.launches for k, (w, _, _) in kernels.items()}
     routes_in_prefill = dict(by_route)
     for r, launched in routes_in_prefill.items():
@@ -971,7 +1006,8 @@ def model_path(dev, arch: str, kernels: dict, routes=None, *,
         f"captured caches equal to eager; launches "
         + ", ".join(f"{k} {counts[k]} ({in_prefill[k]} in prefill, "
                     f"{replay_counts[k]} in a replayed call)" for k in kernels)
-        + f"; flash routes in prefill {routes_in_prefill}")
+        + f"; flash routes in prefill {routes_in_prefill}; moe paths in "
+        f"prefill {paths}")
     for what, (wall_ms, dev_ms, n_kernels, top, ev_ms) in busy.items():
         share = f"{dev_ms / wall_ms:.3f}" if dev_ms else "not measured"
         log(f"profile {arch} {what}: wall {wall_ms:.3f} ms, events "
@@ -2184,9 +2220,105 @@ def _replayed_ms(fn, reps: int = 300) -> float:
     return best
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler's kernel key without its namespace, template and
+    arguments."""
+    m = re.search(r"(\w+_kernel)\b", key)
+    return m.group(1) if m else key
+
+
+def _moe_held_to_plain(layer, x, path_fn, what: str) -> float:
+    """A kernel path's moe layer (``path_fn``, ``moe._moe_fused`` or
+    ``_moe_routed``) held to the plain one (``_moe_gather``) at the timed
+    inputs, to two bf16 steps (``tests/test_torch_moe_cuda.py``'s limit);
+    returns the max abs error."""
+    import torch
+
+    from repro_torch.models import moe as TMoE
+    tol = card_cases("test_torch_moe_cuda").BF16_TOL
+    params = {k: v.detach() for k, v in layer.named_parameters()}
+    y, y_plain = (fn(params, x, layer.dims)[0].float()
+                  for fn in (path_fn, TMoE._moe_gather))
+    err = (y - y_plain).abs().max().item()
+    if not torch.allclose(y, y_plain, rtol=tol,
+                          atol=2 * tol * y_plain.abs().max().item()):
+        fail(f"{what}: the kernel layer disagrees with the plain one at the "
+             f"timed inputs: max abs err {err:.3g}")
+    return err
+
+
+def _moe_kernel_entries(layer, x, tag: str, dispatch, combine, source: str,
+                        launches: dict, err: float, layer_ms: dict,
+                        how: str) -> list:
+    """The ``kernels`` entries of one kernel path's dispatch and combine
+    over ``x``: each timed beside its plain counterpart (``_route`` and
+    ``_bucket``, router product included, for the dispatch; ``_combine``
+    for the combine), its device time by kernel and its bound (bytes over
+    3.35 TB/s); ``err`` and ``layer_ms`` (the whole layer's times, ``how``
+    measured) ride along."""
+    import torch
+
+    from repro_torch.models import moe as TMoE
+    dims = layer.dims
+    n = x.shape[0]
+    E, k, d = dims.e_pad, dims.top_k, dims.d_model
+    C = TMoE._capacity(n, dims)
+    logits = x.float() @ layer.router
+    xe, ge, slots, _ = dispatch(logits, x, dims.n_experts, k, C)
+    y_e = TMoE._expert_ffn(layer.w_gate, layer.w_up, layer.w_down, xe)
+    del xe
+    gates, idx, _ = TMoE._route(layer.router, x, dims)
+    _, _, tok = TMoE._bucket(x, gates, idx, C, dims)
+    del gates, idx
+    kept = int((slots >= 0).sum())
+    calls = {
+        # logits and x read; xe, ge, slots and aux written
+        dispatch.__name__: (
+            lambda: dispatch(logits, x, dims.n_experts, k, C),
+            lambda: TMoE._bucket(x, *TMoE._route(layer.router, x, dims)[:2],
+                                 C, dims),
+            4 * n * E + 2 * n * d + 2 * E * C * d + 4 * E * C + 4 * n * k
+            + 4),
+        # the kept slots' rows and gates and the slot lists read; the
+        # tokens' rows written
+        combine.__name__: (
+            lambda: combine(y_e, ge, slots),
+            lambda: TMoE._combine(y_e, ge, tok, n, d, k),
+            kept * (2 * d + 4) + 4 * n * k + 2 * n * d),
+    }
+    out = []
+    for kname, (kernel, plain, nbytes) in calls.items():
+        ms, plain_ms = _time_pair(kernel, plain)
+        by_kernel = _device_ms_by_kernel(kernel, calls=5)
+        dev_ms = sum(by_kernel.values()) if by_kernel else None
+        bound_ms = _bound(nbytes, 0)[0]
+        name = f"{kname}_bf16_{tag}_n{n}"
+        log(f"{name}: E_pad {E}, top-{k}, d {d}, C {C}, {kept} kept "
+            f"assignments: the kernel layer's max abs err {err:.3g}, kernel "
+            f"{ms:.5f} ms, plain {plain_ms:.5f} ms, bound {bound_ms:.6f} ms "
+            f"(bytes; {nbytes} B), {100 * bound_ms / ms:.1f}% of it; device "
+            f"time per call (profiler): "
+            + (f"{dev_ms:.5f} ms: " + ", ".join(
+                f"{_kernel_name(key)} {v:.5f}"
+                for key, v in sorted(by_kernel.items()))
+               if by_kernel else "not measured")
+            + f"; the layer ({how}): " + ", ".join(
+                f"{path} {v:.5f} ms" for path, v in layer_ms.items()))
+        out.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": "src/repro/models/moe.py (_route, _bucket, "
+                        "_combine: XLA, no kernel)",
+            "launches": launches[kname], "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": "bytes", "library_ms": None, "dev_ms": dev_ms,
+            "layer_ms": layer_ms})
+    return out
+
+
 def moe_kernels(dev, launches: dict) -> list:
-    """Phase 37 (module docstring).  ``launches`` maps each arch to its
-    model path's launch counts (phases 21-22)."""
+    """Phase 37, the decode-sized kernels (module docstring).
+    ``launches`` maps each arch to its model path's launch counts (phases
+    21-22)."""
     import torch
 
     from repro_torch.kernels.moe_dispatch import (
@@ -2224,68 +2356,75 @@ def moe_kernels(dev, launches: dict) -> list:
     out = []
     for arch, n in MOE_SHAPES:
         layer = layers[arch]
-        dims = layer.dims
-        E, k, d = dims.e_pad, dims.top_k, dims.d_model
-        C = TMoE._capacity(n, dims)
-        x = torch.randn((n, d), device=dev, generator=torch.Generator(
-            dev).manual_seed(1)).to(torch.bfloat16)
+        x = torch.randn((n, layer.dims.d_model), device=dev,
+                        generator=torch.Generator(dev).manual_seed(1)).to(
+                            torch.bfloat16)
         with torch.no_grad():
-            params = {k: v.detach() for k, v in layer.named_parameters()}
-            y, y_plain = (fn(params, x, dims)[0].float() for fn in (
-                TMoE._moe_fused, TMoE._moe_gather))
-            err = (y - y_plain).abs().max().item()
-            tol = moe_cases.BF16_TOL                    # two bf16 steps
-            if not torch.allclose(y, y_plain, rtol=tol, atol=2 * tol * (
-                    y_plain.abs().max().item())):
-                fail(f"moe {arch} over {n} tokens: the fused layer disagrees "
-                     f"with the plain one at the timed inputs: max abs err "
-                     f"{err:.3g}")
-            logits = x.float() @ layer.router
-            xe, ge, slots, _ = moe_dispatch(logits, x, dims.n_experts, k, C)
-            y_e = TMoE._expert_ffn(layer.w_gate, layer.w_up, layer.w_down,
-                                   xe)
-            gates, idx, _ = TMoE._route(layer.router, x, dims)
-            _, _, tok = TMoE._bucket(x, gates, idx, C, dims)
-            kept = int((slots >= 0).sum())
-            calls = {
-                # logits and x read; xe, ge, slots and aux written
-                "moe_dispatch": (
-                    lambda: moe_dispatch(logits, x, dims.n_experts, k, C),
-                    lambda: TMoE._bucket(x, *TMoE._route(
-                        layer.router, x, dims)[:2], C, dims),
-                    4 * n * E + 2 * n * d + 2 * E * C * d + 4 * E * C
-                    + 4 * n * k + 4),
-                # the kept slots' rows and gates and the slot lists read;
-                # the tokens' rows written
-                "moe_combine": (
-                    lambda: moe_combine(y_e, ge, slots),
-                    lambda: TMoE._combine(y_e, ge, tok, n, d, k),
-                    kept * (2 * d + 4) + 4 * n * k + 2 * n * d),
-            }
-            for kname, (kernel, plain, nbytes) in calls.items():
-                ms, plain_ms = _time_pair(kernel, plain)
-                dev_ms = _device_ms_per_call(kernel)
-                bound_ms = _bound(nbytes, 0)[0]
-                name = f"{kname}_bf16_{arch.split('-moe')[0]}_n{n}"
-                log(f"{name}: E_pad {E}, top-{k}, d {d}, C {C}, {kept} kept "
-                    f"assignments: the fused layer's max abs err {err:.3g}, "
-                    f"kernel {ms:.5f} ms, plain {plain_ms:.5f} "
-                    f"ms, bound {bound_ms:.6f} ms (bytes; {nbytes} B); "
-                    f"device time per call (profiler): kernel {dev_ms}; the "
-                    f"layer replayed, plain {layer_ms[arch, n]['plain']:.5f} "
-                    f"ms, fused {layer_ms[arch, n]['fused']:.5f} ms")
-                out.append({
-                    "name": name, "route": "cuda",
-                    "source": "src/repro_torch/csrc/moe_dispatch.cu",
-                    "replaces": "src/repro/models/moe.py (_route, _bucket, "
-                                "_combine: XLA, no kernel)",
-                    "launches": launches[arch][kname],
-                    "max_abs_err": err,
-                    "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                    "bound_by": "bytes", "library_ms": None,
-                    "dev_ms": dev_ms, "layer_ms": layer_ms[arch, n]})
+            err = _moe_held_to_plain(layer, x, TMoE._moe_fused,
+                                     f"moe {arch} over {n} tokens")
+            out += _moe_kernel_entries(
+                layer, x, arch.split("-moe")[0], moe_dispatch, moe_combine,
+                "src/repro_torch/csrc/moe_dispatch.cu", launches[arch], err,
+                layer_ms[arch, n], "a replayed graph")
     del layers
     torch.cuda.empty_cache()
+    return out
+
+
+# (arch, tokens): one moe layer at the prefills of gen-hybrid-16k (4 x
+# 16,384), gen-prefill (8 x 4,080) and gen-decode (64 x 256), and at
+# gen-hybrid-16k's decode step (4 rows), which the routed kernels take
+ROUTED_SHAPES = (("granite-4.0-h-small", 65536), ("granite-4.0-h-small", 4),
+                 ("granite-moe-3b-a800m", 32640),
+                 ("granite-moe-3b-a800m", 16384))
+ROUTED_DECODE_TOKENS = 64   # up to it a layer is timed as a replayed graph
+
+
+def routed_kernels(dev, launches: dict) -> list:
+    """Phase 37, the routed kernels (module docstring).  ``launches`` maps
+    each arch to its model path's launch counts (phases 21 and 38)."""
+    import torch
+
+    from repro_torch.kernels.moe_routed import (
+        moe_routed_combine, moe_routed_dispatch)
+    from repro_torch.models import moe as TMoE
+    moe_cases = card_cases("test_torch_moe_cuda")
+
+    out, slower = [], []
+    for arch, n in ROUTED_SHAPES:
+        layer = moe_cases.experts(arch, dev, torch.bfloat16)
+        dims = layer.dims
+        params = {key: v.detach() for key, v in layer.named_parameters()}
+        x = torch.randn((n, dims.d_model), device=dev,
+                        generator=torch.Generator(dev).manual_seed(1)).to(
+                            torch.bfloat16)
+        paths = (("plain", TMoE._moe_gather), ("routed", TMoE._moe_routed))
+        with torch.no_grad():
+            err = _moe_held_to_plain(layer, x, TMoE._moe_routed,
+                                     f"moe {arch} over {n} tokens")
+            if n <= ROUTED_DECODE_TOKENS:
+                how = "a replayed graph"
+                layer_ms = {path: _replayed_ms(lambda: fn(params, x, dims))
+                            for path, fn in paths}
+            else:
+                how = "eager, CUDA events, best of two rounds of five"
+                layer_ms = {path: min(cuda_ms(lambda: fn(params, x, dims),
+                                              iters=5, warmup=2)
+                                      for _ in range(2))
+                            for path, fn in paths}
+            if layer_ms["routed"] >= layer_ms["plain"]:
+                slower.append((arch, n))
+            tag = "".join(w[0] if i else w for i, w in enumerate(
+                arch.split("-")[:2]))
+            out += _moe_kernel_entries(
+                layer, x, tag, moe_routed_dispatch, moe_routed_combine,
+                "src/repro_torch/csrc/moe_routed.cu", launches[arch], err,
+                layer_ms, how)
+        del layer, params, x
+        torch.cuda.empty_cache()
+    if slower:
+        fail(f"the routed moe layer is not faster than the plain one at "
+             f"{slower}")
     return out
 
 
@@ -2328,15 +2467,18 @@ def hybrid_path(dev) -> list:
     for bit.  Every launch count is set to 0 just before the prefill and
     read after each part: B3 2 launches in the prefill, all on its
     ``wgmma`` route, B2 none; B2 2 a step over the replayed steps, B3
-    none; the experts' dispatch and combine kernels none (72 experts and
-    top-10 lie outside ``moe_dispatch.takes``: the plain route); the SSD
-    kernel 18 launches in the prefill, none in decode; Mamba-2 18 mixer
-    calls, 18 x 64 SSD chunks and 18 SSDs on the kernel in the prefill.
+    none; the decode-sized moe kernels none (72 experts and top-10 lie
+    outside ``moe_dispatch.takes``), the routed ones in every layer (3 + 1
+    launches a layer, in the prefill and in each replayed step), and
+    ``moe.PATH_CALLS`` "routed" alone rising, by 20 in the prefill and by
+    a multiple of 20 in ``decode_multi``'s capture; the SSD kernel 18
+    launches in the prefill, none in decode; Mamba-2 18 mixer calls, 18 x
+    64 SSD chunks and 18 SSDs on the kernel in the prefill.
     Then, the model freed, B3 at the prefill's shape (held to the chunked
     plain version) and B2 at the last step's (4 rows over 16,448 slots),
     GQA 32/8 at D 128, held to their plain versions and timed as phase 10
     times them, and the SSD kernel at one layer (``time_ssd``).  Returns
-    their ``kernels`` entries."""
+    their ``kernels`` entries and the run's launch counts."""
     import dataclasses
 
     import numpy as np
@@ -2346,8 +2488,11 @@ def hybrid_path(dev) -> list:
     from repro_torch.kernels.decode_attention import decode_attention_bhd
     from repro_torch.kernels.flash_attention import flash_attention_bhsd
     from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    from repro_torch.kernels.moe_routed import (
+        moe_routed_combine, moe_routed_dispatch)
     from repro_torch.kernels.ssd import ssd_chunk
     from repro_torch.models import model as M
+    from repro_torch.models.moe import PATH_CALLS
     from repro_torch.models.ssm import MAMBA2_COUNTS
     graph_cases = card_cases("test_torch_graph_cuda")
 
@@ -2375,13 +2520,14 @@ def hybrid_path(dev) -> list:
 
     kernels = {"flash": flash_attention_bhsd, "decode": decode_attention_bhd,
                "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
-               "ssd": ssd_chunk}
+               "moe_routed_dispatch": moe_routed_dispatch,
+               "moe_routed_combine": moe_routed_combine, "ssd": ssd_chunk}
     for w in kernels.values():
         w.launches = 0
     by_route = flash_attention_bhsd.launches_by_route
     for r in by_route:
         by_route[r] = 0
-    counts0 = dict(MAMBA2_COUNTS)
+    counts0, paths0 = dict(MAMBA2_COUNTS), dict(PATH_CALLS)
     torch.cuda.reset_peak_memory_stats(dev)
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
@@ -2391,8 +2537,14 @@ def hybrid_path(dev) -> list:
     prefill_ms = start.elapsed_time(end)
     peak = torch.cuda.max_memory_allocated(dev)
     in_prefill = {k: w.launches for k, w in kernels.items()}
+    prefill_paths = {k: v - paths0[k] for k, v in PATH_CALLS.items()}
+    if prefill_paths != {"fused": 0, "gather": 0, "routed": HYBRID_LAYERS}:
+        fail(f"{HYBRID_ARCH}: the prefill's moe layers took the paths "
+             f"{prefill_paths}, want routed {HYBRID_LAYERS} of "
+             f"{HYBRID_LAYERS}")
     want = {"flash": n_attn, "decode": 0, "moe_dispatch": 0,
-            "moe_combine": 0, "ssd": n_ssm}
+            "moe_combine": 0, "moe_routed_dispatch": 3 * HYBRID_LAYERS,
+            "moe_routed_combine": HYBRID_LAYERS, "ssd": n_ssm}
     if in_prefill != want or dict(by_route) != {**dict.fromkeys(by_route, 0),
                                                 "wgmma": n_attn}:
         fail(f"{HYBRID_ARCH}: the prefill launched {in_prefill} (routes "
@@ -2412,7 +2564,14 @@ def hybrid_path(dev) -> list:
     del cache
     first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
     graph_c, eager_c = _clone(saved), _clone(saved)
+    paths0 = dict(PATH_CALLS)
     captured, _, clen = model.decode_multi(first, graph_c, S, N)  # capture
+    capture_paths = {k: v - paths0[k] for k, v in PATH_CALLS.items()}
+    if capture_paths["fused"] or capture_paths["gather"] \
+            or not capture_paths["routed"] \
+            or capture_paths["routed"] % HYBRID_LAYERS:
+        fail(f"{HYBRID_ARCH}: decode_multi's capture took the moe paths "
+             f"{capture_paths}, want routed only, {HYBRID_LAYERS} a step")
     graph_cases.restore(graph_c, saved)
     before = {k: w.launches for k, w in kernels.items()}
     torch.cuda.synchronize()
@@ -2428,7 +2587,8 @@ def hybrid_path(dev) -> list:
     torch.cuda.synchronize()
     eager_ms = start.elapsed_time(end) / N
     want = {"flash": 0, "decode": n_attn * N, "moe_dispatch": 0,
-            "moe_combine": 0, "ssd": 0}
+            "moe_combine": 0, "moe_routed_dispatch": 3 * HYBRID_LAYERS * N,
+            "moe_routed_combine": HYBRID_LAYERS * N, "ssd": 0}
     if replayed != want:
         fail(f"{HYBRID_ARCH}: {N} replayed steps launched {replayed}, want "
              f"{want}")
@@ -2449,7 +2609,11 @@ def hybrid_path(dev) -> list:
         + ", ".join(f"{k} {launches[k]} ({in_prefill[k]} in prefill, "
                     f"{replayed[k]} in a replayed call)" for k in kernels)
         + f"; Mamba-2 {ssm_calls} calls, {ssm_chunks} SSD chunks, "
-        f"{ssm_kernel} of {ssm_calls} SSDs on the kernel in prefill")
+        f"{ssm_kernel} of {ssm_calls} SSDs on the kernel in prefill; moe "
+        f"PATH_CALLS routed {prefill_paths['routed']} of {HYBRID_LAYERS} "
+        f"layers in the prefill, {capture_paths['routed']} in "
+        f"decode_multi's capture of {N} steps (its warm-up and capture), "
+        f"{capture_paths} in all")
     del model, logits, saved, graph_c, eager_c
     torch.cuda.empty_cache()
     H, KV, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
@@ -2457,7 +2621,7 @@ def hybrid_path(dev) -> list:
     return [time_flash(dev, launches, B, S, H, KV, D,
                        plain=flash_plain_chunked),
             time_decode(dev, launches, B, S + N, H=H, KV=KV, D=D),
-            time_ssd(dev, launches["ssd"], cfg)]
+            time_ssd(dev, launches["ssd"], cfg)], launches
 
 
 def time_ssd(dev, launches: int, cfg) -> dict:

@@ -148,6 +148,14 @@ def load_library() -> ctypes.CDLL:
     lib.moe_combine_launch.restype = ci
     lib.moe_limits.argtypes = [ci]
     lib.moe_limits.restype = ci
+    lib.moe_routed_dispatch_launch.argtypes = [*[vp] * 7, *[ci] * 6, vp]
+    lib.moe_routed_dispatch_launch.restype = ci
+    lib.moe_routed_combine_launch.argtypes = [ci, *[vp] * 4, ci, ci, ci, vp]
+    lib.moe_routed_combine_launch.restype = ci
+    lib.moe_routed_workspace_bytes.argtypes = [ci, ci, ci]
+    lib.moe_routed_workspace_bytes.restype = ctypes.c_size_t
+    lib.moe_routed_limits.argtypes = [ci]
+    lib.moe_routed_limits.restype = ci
     lib.ssd_launch.argtypes = [*[vp] * 11, *[ci] * 5, *[i64] * 6, vp]
     lib.ssd_launch.restype = ci
     lib.ssd_limits.argtypes = [ci]

@@ -41,17 +41,27 @@ accumulation (``torch.sum``, no atomics), rounded once to the experts'
 dtype.  In float32 that differs from the reference only in the order of
 ``k`` additions.
 
-Decode-sized calls on the card take two hand-written kernels in place of
-routing, buckets and combine (``kernels.moe_dispatch``, around the same
-``_expert_ffn``): the same capacity, drop order, roundings and float32 sum
-over ``k`` in expert order, each assignment's slot counted instead of
-sorted, in two launches where the plain path makes some sixty.  The gates
-may differ from the plain path's in their last bits (the softmax sums in
-another order).  ``_moe_local`` takes them when the tensors are on the
-card, no gradient is needed, and the kernels take the call's sizes
-(``moe_dispatch.takes``: at most ``MAX_ASSIGNMENTS`` assignments); training,
-the ``shard_map`` bodies, the CPU and prefill-sized calls run the plain
-path.  ``PATH_CALLS`` counts the two.
+On the card, with no gradient to keep, two sets of hand-written kernels
+take routing, buckets and combine in place of the plain path, around the
+same ``_expert_ffn``: the same capacity, drop order, roundings and float32
+sum over ``k`` in expert order, each assignment's slot counted instead of
+sorted.  The gates may differ from the plain path's in their last bits
+(the softmax sums in another order).  ``_path`` takes the first of three
+that accepts the call, by what it shows (device, gradient, N, E_pad,
+top_k, d, dtype):
+
+* ``"fused"``, decode sizes (``kernels.moe_dispatch``, ``moe_dispatch.
+  takes``: at most ``MAX_ASSIGNMENTS`` assignments, 64 experts, top-8): two
+  launches, every block routing every token, for latency;
+* ``"routed"``, every other such call the kernels take (``kernels.
+  moe_routed``, ``moe_routed.takes``: up to 128 experts, top-16, ``E_pad *
+  C`` under 2^31): each token routed once across the grid, then the
+  buckets filled, in four launches that move each row about once, for
+  bytes (prefills, and granite-4.0-h's 72 experts top-10 at any size);
+* ``"gather"``, the plain path: training, the ``shard_map`` bodies, the
+  CPU and ``meta``, and sizes neither set takes.
+
+``PATH_CALLS`` counts the three.
 """
 from __future__ import annotations
 
@@ -75,6 +85,7 @@ from repro_torch.dist.sharding import (
     shard_map,
 )
 from repro_torch.kernels import moe_dispatch as moe_kernels
+from repro_torch.kernels import moe_routed
 from repro_torch.models.layers import _normal, dense_init
 
 NEG_INF = -1e30
@@ -246,29 +257,48 @@ def _combine(y_e, ge, tok, n_tokens: int, d: int, top_k: int):
 
 # which path each ``_moe_local`` call took, counted (a graph's capture
 # counts, its replays run no Python); the tests read it
-PATH_CALLS = {"fused": 0, "gather": 0}
+PATH_CALLS = {"fused": 0, "gather": 0, "routed": 0}
 
 
-def _fused(params: Dict[str, torch.Tensor], x, dims: MoEDims) -> bool:
-    """Whether ``_moe_local`` takes the fused dispatch and combine (module
-    docstring): on the card, with no gradient to keep, at sizes the kernels
-    take."""
+def _path(params: Dict[str, torch.Tensor], x, dims: MoEDims) -> str:
+    """Which path ``_moe_local`` takes (module docstring): ``"fused"`` or
+    ``"routed"`` on the card, with no gradient to keep, at sizes the
+    kernels take; ``"gather"`` otherwise."""
     if not x.is_cuda:
-        return False
+        return "gather"
     if torch.is_grad_enabled() and (
             x.requires_grad or any(p.requires_grad for p in params.values())):
-        return False
+        return "gather"
     N, d = x.shape
-    return moe_kernels.takes(N, dims.e_pad, dims.top_k, d, x.dtype)
+    if moe_kernels.takes(N, dims.e_pad, dims.top_k, d, x.dtype):
+        return "fused"
+    if moe_routed.takes(N, dims.e_pad, dims.top_k, d, x.dtype,
+                        _capacity(N, dims)):
+        return "routed"
+    return "gather"
+
+
+def _moe_kernels(dispatch, combine, params: Dict[str, torch.Tensor], x,
+                 dims: MoEDims):
+    """``_moe_local`` through a dispatch and a combine kernel around
+    ``_expert_ffn``."""
+    logits = x.float() @ params["router"]                        # [N, E_pad]
+    xe, ge, slots, aux = dispatch(logits, x, dims.n_experts, dims.top_k,
+                                  _capacity(x.shape[0], dims))
+    y_e = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
+    return combine(y_e, ge, slots), aux
 
 
 def _moe_fused(params: Dict[str, torch.Tensor], x, dims: MoEDims):
-    """``_moe_local`` through the dispatch and combine kernels."""
-    logits = x.float() @ params["router"]                        # [N, E_pad]
-    xe, ge, slots, aux = moe_kernels.moe_dispatch(
-        logits, x, dims.n_experts, dims.top_k, _capacity(x.shape[0], dims))
-    y_e = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
-    return moe_kernels.moe_combine(y_e, ge, slots), aux
+    """``_moe_local`` through the decode-sized kernels."""
+    return _moe_kernels(moe_kernels.moe_dispatch, moe_kernels.moe_combine,
+                        params, x, dims)
+
+
+def _moe_routed(params: Dict[str, torch.Tensor], x, dims: MoEDims):
+    """``_moe_local`` through the route-once-then-fill kernels."""
+    return _moe_kernels(moe_routed.moe_routed_dispatch,
+                        moe_routed.moe_routed_combine, params, x, dims)
 
 
 def _moe_gather(params: Dict[str, torch.Tensor], x, dims: MoEDims):
@@ -282,11 +312,14 @@ def _moe_gather(params: Dict[str, torch.Tensor], x, dims: MoEDims):
     return _combine(y_e, ge, tok, N, d, dims.top_k), aux
 
 
+_PATHS = {"fused": _moe_fused, "routed": _moe_routed, "gather": _moe_gather}
+
+
 def _moe_local(params: Dict[str, torch.Tensor], x, dims: MoEDims):
     """x: [N, d] -> (y [N, d], aux)."""
-    path = "fused" if _fused(params, x, dims) else "gather"
+    path = _path(params, x, dims)
     PATH_CALLS[path] += 1
-    return (_moe_fused if path == "fused" else _moe_gather)(params, x, dims)
+    return _PATHS[path](params, x, dims)
 
 
 # which body ``moe_apply`` last took under a mesh, counted (the tests read

@@ -1,19 +1,21 @@
 """Which path ``repro_torch.models.moe._moe_local`` takes, on the CPU.
 
-``_fused`` decides it from what the call shows: the device, the grad mode
-and the sizes the kernels take (``moe_dispatch.takes``).  The fused
-dispatch and combine run only on the card, so each row of the table holds
-``_fused`` to its answer for an input that shows the row's device, grad
-mode, type and sizes (a stand-in for x with those attributes, the layer's
-weights real), and then runs the same layer on the CPU, where
-``PATH_CALLS`` must count the plain path: the CPU and ``meta`` (the
-dry-run's device) never take the kernels.  The rows: a gradient to keep,
-through the weights or the input, takes the plain path; ``N * top_k`` at
-and past ``MAX_ASSIGNMENTS``, more than 64 experts, more than top-8, rows
-not a multiple of 16 bytes and float16 are sizes the kernels do not take.
-On a mesh, ``tp == 1`` runs ``_moe_local`` over the tokens and ``tp ==
-2`` a ``shard_map`` body, which counts in ``BODY_CALLS`` and not here.
-The card side, where ``PATH_CALLS`` counts the fused path, is
+``_path`` decides it from what the call shows: the device, the grad mode
+and the sizes each set of kernels takes (``moe_dispatch.takes``, then
+``moe_routed.takes``).  The kernels run only on the card, so each row of
+the table holds ``_path`` to its answer for an input that shows the row's
+device, grad mode, type and sizes (a stand-in for x with those
+attributes, the layer's weights real), and then runs the same layer on
+the CPU, where ``PATH_CALLS`` must count the plain path: the CPU and
+``meta`` (the dry-run's device) never take the kernels.  The rows: a
+gradient to keep, through the weights or the input, takes the plain path;
+up to ``MAX_ASSIGNMENTS`` assignments, 64 experts and top-8 the decode
+kernels ("fused"), past any of those up to 128 experts and top-16 the
+routed kernels; rows not a multiple of 16 bytes, float16, more than 128
+experts or more than top-16 the plain path.  On a mesh, ``tp == 1`` runs
+``_moe_local`` over the tokens and ``tp == 2`` a ``shard_map`` body,
+which counts in ``BODY_CALLS`` and not here.  The card side, where
+``PATH_CALLS`` counts the kernels' paths, is
 ``tests/test_torch_moe_cuda.py``'s.
 
 The wrappers take card tensors only, and refuse what the kernels do not
@@ -27,6 +29,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import moe_dispatch as K
+from repro_torch.kernels import moe_routed as R
 from repro_torch.models import moe as TMoE
 
 
@@ -64,49 +67,62 @@ def run(md, n: int, *, grad="off", dtype=torch.float32, device="cpu"):
     return rise, y, aux
 
 
-def fused(md, n: int, *, card=True, grad="off", dtype=torch.float32):
-    """``_fused`` for an input of ``n`` tokens that shows the card (or
+def path(md, n: int, *, card=True, grad="off", dtype=torch.float32):
+    """``_path`` for an input of ``n`` tokens that shows the card (or
     the CPU), ``grad`` as in ``run``, and ``dtype``."""
     params = params_for(layer(md), grad)
     x = types.SimpleNamespace(is_cuda=card, requires_grad=grad == "input",
                               shape=torch.Size((n, md.d_model)), dtype=dtype)
     with torch.set_grad_enabled(grad != "off"):
-        return TMoE._fused(params, x, md)
+        return TMoE._path(params, x, md)
 
 
 ROWS = {
-    # name: (dims, tokens, keywords of ``fused`` and ``run``, takes the
-    # kernels on the card)
-    "cpu": (dims(), 8, dict(card=False), False),
-    "card": (dims(), 8, {}, True),
-    "card-bf16": (dims(), 8, dict(dtype=torch.bfloat16), True),
-    "grad-weights": (dims(), 8, dict(grad="weights"), False),
-    "grad-input": (dims(), 8, dict(grad="input"), False),
-    "grad-on-nothing-requires": (dims(), 8, dict(grad="none"), True),
-    "assignments-at-limit": (dims(), K.MAX_ASSIGNMENTS // 2, {}, True),
+    # name: (dims, tokens, keywords of ``path`` and ``run``, the path on
+    # the card)
+    "cpu": (dims(), 8, dict(card=False), "gather"),
+    "card": (dims(), 8, {}, "fused"),
+    "card-bf16": (dims(), 8, dict(dtype=torch.bfloat16), "fused"),
+    "grad-weights": (dims(), 8, dict(grad="weights"), "gather"),
+    "grad-input": (dims(), 8, dict(grad="input"), "gather"),
+    "grad-on-nothing-requires": (dims(), 8, dict(grad="none"), "fused"),
+    "assignments-at-limit": (dims(), K.MAX_ASSIGNMENTS // 2, {}, "fused"),
     "assignments-past-limit": (dims(), K.MAX_ASSIGNMENTS // 2 + 1, {},
-                               False),
-    "experts-64": (dims(e=64, k=8), 16, {}, True),
-    "experts-72": (dims(e=72, k=8), 16, {}, False),
-    "top-9": (dims(e=16, k=9), 16, {}, False),
-    "row-72-bytes": (dims(d=36), 8, dict(dtype=torch.bfloat16), False),
-    "float16": (dims(), 8, dict(dtype=torch.float16), False),
+                               "routed"),
+    "assignments-2048": (dims(k=1), 2048, {}, "fused"),
+    "assignments-2049": (dims(k=1), 2049, {}, "routed"),
+    "experts-64": (dims(e=64, k=8), 16, {}, "fused"),
+    "experts-65": (dims(e=65, k=8), 16, {}, "routed"),
+    "experts-72": (dims(e=72, k=8), 16, {}, "routed"),
+    "experts-128": (dims(e=128, k=8), 16, {}, "routed"),
+    "experts-129": (dims(e=129, k=8), 16, {}, "gather"),
+    "top-8": (dims(e=16, k=8), 16, {}, "fused"),
+    "top-9": (dims(e=16, k=9), 16, {}, "routed"),
+    "top-16": (dims(e=16, k=16), 16, {}, "routed"),
+    "top-17": (dims(e=32, k=17), 16, {}, "gather"),
+    "granite-4.0-h-decode": (dims(e=72, k=10, d=128), 4,
+                             dict(dtype=torch.bfloat16), "routed"),
+    "routed-grad-weights": (dims(e=72, k=10), 4, dict(grad="weights"),
+                            "gather"),
+    "row-72-bytes": (dims(d=36), 8, dict(dtype=torch.bfloat16), "gather"),
+    "float16": (dims(), 8, dict(dtype=torch.float16), "gather"),
 }
+PLAIN = {"fused": 0, "gather": 1, "routed": 0}
 
 
 @pytest.mark.parametrize("name", sorted(ROWS))
 def test_path_choice(name):
     md, n, kw, want = ROWS[name]
-    assert fused(md, n, **kw) is want
+    assert path(md, n, **kw) == want
     rise, y, aux = run(md, n, **{k: v for k, v in kw.items() if k != "card"})
-    assert rise == {"fused": 0, "gather": 1}
+    assert rise == PLAIN
     assert y.shape == (1, n, md.d_model) and torch.isfinite(aux)
 
 
 def test_path_choice_on_meta():
     """The dry-run's ``meta`` tensors take the plain path."""
     rise, y, _ = run(dims(), 8, device="meta")
-    assert rise == {"fused": 0, "gather": 1} and y.device.type == "meta"
+    assert rise == PLAIN and y.device.type == "meta"
 
 
 @pytest.mark.parametrize("shape,body", [((2, 1), None), ((1, 2), "a2a")])
@@ -121,9 +137,9 @@ def test_path_choice_on_a_mesh(shape, body):
             rise, _, _ = run(dims(), 8)
             moved = {k for k in bodies if TMoE.BODY_CALLS[k] > bodies[k]}
     if body is None:
-        assert rise == {"fused": 0, "gather": 1} and moved == {"local"}
+        assert rise == PLAIN and moved == {"local"}
     else:
-        assert rise == {"fused": 0, "gather": 0} and moved == {body}
+        assert rise == dict.fromkeys(PLAIN, 0) and moved == {body}
 
 
 def dispatch_args(n=8, e=8, k=2, d=64, dtype=torch.bfloat16):
@@ -135,12 +151,19 @@ def combine_args(e=8, c=4, d=64, n=8, k=2, dtype=torch.bfloat16):
             torch.zeros((n, k), dtype=torch.int32)]
 
 
-@pytest.mark.parametrize("which", ("dispatch", "combine"))
+WRAPPERS = {
+    "dispatch": (K.moe_dispatch, dispatch_args),
+    "combine": (K.moe_combine, combine_args),
+    "routed-dispatch": (R.moe_routed_dispatch, dispatch_args),
+    "routed-combine": (R.moe_routed_combine, combine_args),
+}
+
+
+@pytest.mark.parametrize("which", WRAPPERS)
 def test_wrappers_take_only_card_tensors(which):
-    fn, args = ((K.moe_dispatch, dispatch_args()) if which == "dispatch"
-                else (K.moe_combine, combine_args()))
+    fn, args = WRAPPERS[which]
     with pytest.raises(ValueError, match="no kernel for device cpu"):
-        fn(*args)
+        fn(*args())
 
 
 def _edit(args, i, value):
@@ -149,7 +172,8 @@ def _edit(args, i, value):
 
 
 DISPATCH_REFUSED = {
-    # name: (arguments, error)
+    # name: (arguments, error), refused by both sets' checks; "routed-*"
+    # by the routed kernels' alone
     "logits-bf16": (_edit(dispatch_args(), 0,
                           torch.zeros((8, 8), dtype=torch.bfloat16)),
                     TypeError),
@@ -162,14 +186,25 @@ DISPATCH_REFUSED = {
                          ValueError),
     "logits-strided": (_edit(dispatch_args(), 0, torch.zeros((8, 16))[:, ::2]),
                        ValueError),
+    "routed-experts-129": (dispatch_args(e=129), ValueError),
+    "routed-top-17": (dispatch_args(e=32, k=17), ValueError),
+    "routed-row-72-bytes": (dispatch_args(d=36), ValueError),
+    "routed-slots-past-int32": (_edit(dispatch_args(e=128), 4,
+                                      2 ** 31 // 128), ValueError),
+    "routed-float16": (dispatch_args(dtype=torch.float16), TypeError),
 }
 
 
 @pytest.mark.parametrize("name", sorted(DISPATCH_REFUSED))
 def test_dispatch_check_refuses(name):
     args, error = DISPATCH_REFUSED[name]
-    with pytest.raises(error):
-        K._check_dispatch(*args)
+    checks = ([R._check_dispatch] if name.startswith("routed-") else
+              [K._check_dispatch, R._check_dispatch])
+    if name == "past-assignments":      # the routed kernels' to take
+        checks = [K._check_dispatch]
+    for check in checks:
+        with pytest.raises(error):
+            check(*args)
 
 
 COMBINE_REFUSED = {
@@ -178,16 +213,24 @@ COMBINE_REFUSED = {
     "slots-int64": (_edit(combine_args(), 2,
                           torch.zeros((8, 2), dtype=torch.long)), TypeError),
     "row-72-bytes": (combine_args(d=36), ValueError),
+    "routed-top-17": (combine_args(e=32, k=17), ValueError),
 }
 
 
 @pytest.mark.parametrize("name", sorted(COMBINE_REFUSED))
 def test_combine_check_refuses(name):
     args, error = COMBINE_REFUSED[name]
-    with pytest.raises(error):
-        K._check_combine(*args)
+    checks = ([R._check_combine] if name.startswith("routed-") else
+              [K._check_combine, R._check_combine])
+    for check in checks:
+        with pytest.raises(error):
+            check(*args)
 
 
 def test_checks_pass_what_the_kernels_take():
     assert K._check_dispatch(*dispatch_args())
     assert K._check_combine(*combine_args())
+    # the routed kernels: past the decode kernels' limits, to theirs
+    assert R._check_dispatch(*dispatch_args(n=K.MAX_ASSIGNMENTS))
+    assert R._check_dispatch(*dispatch_args(e=128, k=16))
+    assert R._check_combine(*combine_args(e=128, k=16))
