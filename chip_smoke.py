@@ -251,6 +251,27 @@ fails:
    FMAs on CUDA cores at 67 TFLOP/s; and float32 accuracy on the tensor
    cores by 3xTF32) and each of its four passes' device
    time.
+40. DeepSeek-V2-Lite whole (port-only: 27 layers of multi-head latent
+   attention, layer 0 a dense SwiGLU, layers 1-26 64 experts top-6 with
+   the gates not renormalised and 2 ungated shared experts; bf16, every
+   width as published, 15.71 B parameters) at portbench's gen-mla-32k
+   shapes, right after phase 38: ``Model.prefill`` over 4 x 32,768
+   tokens, then 128 tokens by the captured ``decode_multi`` and by the
+   stepwise loop, tokens and latent caches equal; the launch counts set
+   to 0 before the prefill and read: B3 27 on ``wgmma`` (the padded
+   decompressed attention) in the prefill, none in decode, B2 none, the
+   routed moe kernels 3 + 1 a layer of 26 in the prefill, the decode
+   ones 1 + 1 a layer in each replayed step; ``moe.PATH_CALLS`` routed 26
+   in the prefill and fused alone in the capture; ``mla.MLA_COUNTS`` 27
+   decompressed and 27 padded calls in the prefill, absorbed calls a
+   multiple of 27 in the capture; then, the model freed, B3 at the
+   prefill's padded shape (4 x 32,768, 16 heads at 256; held to the
+   chunked plain version of the padded call), its bound on the needed
+   work (pairs at 192 / 128) and on the executed (256 / 256), the whole
+   padded call with its copies, and the absorbed decode attention at the
+   last step's 32,896 slots, held to a float32 decompressed evaluation
+   and timed beside its bound (the latent cache read once) and its
+   executed bytes (``c_kv`` read twice).
 
 39. the card tests (run with the serve runs, before this process touches
    the card): ``python -m pytest -q --noconftest -m cuda`` over every
@@ -270,8 +291,9 @@ route their launch counts moved on as ``kernel_route``, and ``B4-bwd``,
 and phase 36's B3, B2 and B4 at one rank's shapes of ``pod_16x16``;
 phase 37's dispatch and combine, decode-sized and routed, whose entries
 carry the whole layer's times, plain and fused or routed, as
-``layer_ms``; and phase 38's
-B3, B2 and the SSD kernel at granite-4.0-h's shapes); the last line
+``layer_ms``; phase 38's
+B3, B2 and the SSD kernel at granite-4.0-h's shapes; and phase 40's B3
+padded and the absorbed decode attention at DeepSeek-V2-Lite's); the last line
 is ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -478,6 +500,10 @@ def main() -> None:
     # the card: its prefill's ~59 GiB peak wants an unfragmented allocator
     with phase("38 (granite-4.0-h-small, 20 layers, 4 x 16,384)"):
         hybrid_entries, hybrid_launches = hybrid_path(dev)
+    # 40. DeepSeek-V2-Lite whole at gen-mla-32k's shapes: 31.4 GB of
+    # weights beside its prefill, so early too
+    with phase("40 (DeepSeek-V2-Lite, 27 layers, 4 x 32,768)"):
+        mla_entries = mla_path(dev)
 
     # 6. times at the serving shapes
     with phase("6 (B1 times)"):
@@ -571,7 +597,7 @@ def main() -> None:
         entries += moe_kernels(dev, moe_launches)
         entries += routed_kernels(dev, {**moe_launches,
                                         HYBRID_ARCH: hybrid_launches})
-    entries += hybrid_entries
+    entries += hybrid_entries + mla_entries
     log(f"the run took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -2697,6 +2723,268 @@ def time_ssd(dev, launches: int, cfg) -> dict:
             "bound_of": "float32 FMAs on CUDA cores",
             "tc_bound_ms": tc_bound_ms, "tc_bound_of": "3xTF32 tensor cores",
             "library_ms": None}
+
+
+# -- phase 40: DeepSeek-V2-Lite ------------------------------------------------
+
+MLA_ARCH = "deepseek-v2-lite"
+MLA_SHAPE = (4, 32768, 128)         # gen-mla-32k: rows, prompt, tokens
+
+
+def mla_path(dev) -> list:
+    """Phase 40: DeepSeek-V2-Lite whole (27 layers) in bf16 at every
+    published width, the weights ``Model``'s own draw, at portbench's
+    gen-mla-32k shapes: ``Model.prefill`` over 4 x 32,768 tokens, then
+    128 greedy tokens by the captured ``decode_multi`` and by the stepwise
+    ``decode_step`` loop from the same cache, which must give the same
+    tokens and latent caches bit for bit.  Every launch count is set to 0
+    just before the prefill and read after each part: B3 27 launches in
+    the prefill, all ``wgmma``, none in decode; B2 none; the routed moe
+    kernels 3 + 1 a layer of 26 in the prefill, none in decode; the
+    decode-sized ones (4 rows x top-6, 24 assignments) none in the
+    prefill, 1 + 1 a layer a replayed step; ``moe.PATH_CALLS`` and
+    ``mla.MLA_COUNTS`` likewise.  Then, the model freed, B3 padded and the
+    absorbed decode attention at the cell's shapes
+    (``time_mla_kernels``).  Returns their ``kernels`` entries."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.decode_attention import decode_attention_bhd
+    from repro_torch.kernels.flash_attention import flash_attention_bhsd
+    from repro_torch.kernels.moe_dispatch import moe_combine, moe_dispatch
+    from repro_torch.kernels.moe_routed import (
+        moe_routed_combine, moe_routed_dispatch)
+    from repro_torch.models import model as M
+    from repro_torch.models.mla import MLA_COUNTS
+    from repro_torch.models.moe import PATH_CALLS
+    graph_cases = card_cases("test_torch_graph_cuda")
+
+    cfg = get_config(MLA_ARCH)
+    L = cfg.n_layers
+    n_moe = L - cfg.first_k_dense_replace
+    B, S, N = MLA_SHAPE
+    t0 = time.perf_counter()
+    model = M.Model(cfg, generator=torch.Generator(dev).manual_seed(0),
+                    device=dev)
+    n_params = sum(p.numel() for p in model.parameters())
+    toks = torch.from_numpy(np.random.default_rng(40).integers(
+        0, cfg.vocab_size, (B, S)).astype(np.int32)).to(dev)
+    _, c = model.prefill(toks)          # warm-up at the timed shapes
+    c = M.grow_cache(c, cfg, B, S + N)
+    model.decode_step(toks[:, :1], c, S)
+    del c
+    torch.cuda.synchronize()
+    log(f"model: {cfg.name}, {n_params} parameters ({cfg.dtype}), built "
+        f"and warmed in {time.perf_counter() - t0:.1f} s")
+
+    kernels = {"flash": flash_attention_bhsd, "decode": decode_attention_bhd,
+               "moe_dispatch": moe_dispatch, "moe_combine": moe_combine,
+               "moe_routed_dispatch": moe_routed_dispatch,
+               "moe_routed_combine": moe_routed_combine}
+    for w in kernels.values():
+        w.launches = 0
+    by_route = flash_attention_bhsd.launches_by_route
+    for r in by_route:
+        by_route[r] = 0
+    counts0, paths0 = dict(MLA_COUNTS), dict(PATH_CALLS)
+    torch.cuda.reset_peak_memory_stats(dev)
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    logits, cache = model.prefill(toks)
+    end.record()
+    torch.cuda.synchronize()
+    prefill_ms = start.elapsed_time(end)
+    peak = torch.cuda.max_memory_allocated(dev)
+    in_prefill = {k: w.launches for k, w in kernels.items()}
+    prefill_paths = {k: v - paths0[k] for k, v in PATH_CALLS.items()}
+    prefill_mla = {k: v - counts0[k] for k, v in MLA_COUNTS.items()}
+    want = {"flash": L, "decode": 0, "moe_dispatch": 0, "moe_combine": 0,
+            "moe_routed_dispatch": 3 * n_moe, "moe_routed_combine": n_moe}
+    if in_prefill != want or dict(by_route) != {**dict.fromkeys(by_route, 0),
+                                                "wgmma": L}:
+        fail(f"{MLA_ARCH}: the prefill launched {in_prefill} (routes "
+             f"{dict(by_route)}), want {want}, all of B3's on wgmma")
+    if prefill_paths != {"fused": 0, "gather": 0, "routed": n_moe} \
+            or prefill_mla != {"decompressed": L, "absorbed": 0,
+                               "latent_slots": L * B * S, "padded_b3": L}:
+        fail(f"{MLA_ARCH}: the prefill took the moe paths {prefill_paths} "
+             f"and counted {prefill_mla}")
+    if not torch.isfinite(logits).all():
+        fail(f"{MLA_ARCH}: prefill logits are not finite")
+    saved = M.grow_cache(cache, cfg, B, S + N)
+    del cache
+    first = logits[:, 0, :cfg.vocab_size].argmax(-1).to(torch.int32)[:, None]
+    graph_c, eager_c = _clone(saved), _clone(saved)
+    paths0, counts0 = dict(PATH_CALLS), dict(MLA_COUNTS)
+    captured, _, clen = model.decode_multi(first, graph_c, S, N)  # capture
+    capture_paths = {k: v - paths0[k] for k, v in PATH_CALLS.items()}
+    absorbed = MLA_COUNTS["absorbed"] - counts0["absorbed"]
+    if capture_paths["routed"] or capture_paths["gather"] \
+            or not capture_paths["fused"] or capture_paths["fused"] % n_moe \
+            or not absorbed or absorbed % L:
+        fail(f"{MLA_ARCH}: decode_multi's capture took the moe paths "
+             f"{capture_paths} and {absorbed} absorbed calls, want fused "
+             f"only, {n_moe} and {L} a step")
+    graph_cases.restore(graph_c, saved)
+    before = {k: w.launches for k, w in kernels.items()}
+    torch.cuda.synchronize()
+    start.record()
+    fused, _, clen = model.decode_multi(first, graph_c, S, N)
+    end.record()
+    torch.cuda.synchronize()
+    graph_ms = start.elapsed_time(end) / N
+    replayed = {k: w.launches - before[k] for k, w in kernels.items()}
+    start.record()
+    steps = graph_cases.stepwise(model, first, eager_c, S, N)
+    end.record()
+    torch.cuda.synchronize()
+    eager_ms = start.elapsed_time(end) / N
+    want = {"flash": 0, "decode": 0, "moe_dispatch": n_moe * N,
+            "moe_combine": n_moe * N, "moe_routed_dispatch": 0,
+            "moe_routed_combine": 0}
+    if replayed != want:
+        fail(f"{MLA_ARCH}: {N} replayed steps launched {replayed}, want "
+             f"{want}")
+    if not (torch.equal(captured, steps) and torch.equal(fused, steps)) \
+            or int(clen) != S + N:
+        fail(f"{MLA_ARCH}: decode_multi differs from stepwise decoding: "
+             f"{fused.tolist()} vs {steps.tolist()}")
+    differ = graph_cases.unequal_leaves(graph_c, eager_c)
+    if differ:
+        fail(f"{MLA_ARCH}: the captured decode_multi's cache differs from "
+             f"the eager loop's in {differ}")
+    launches = {k: w.launches for k, w in kernels.items()}
+    log(f"model path {MLA_ARCH} ({L} layers, {n_moe} with experts): prefill "
+        f"{B} x {S} tokens {prefill_ms:.3f} ms, peak {peak} bytes "
+        f"allocated; decode {B} rows x {N} tokens: decode_multi replayed "
+        f"{graph_ms:.3f} ms/token, stepwise {eager_ms:.3f} ms/token; "
+        f"streams and caches equal; launches "
+        + ", ".join(f"{k} {launches[k]} ({in_prefill[k]} in prefill, "
+                    f"{replayed[k]} in a replayed call)" for k in kernels)
+        + f"; MLA_COUNTS in the prefill {prefill_mla}, absorbed calls in "
+        f"decode_multi's capture {absorbed}; moe PATH_CALLS in the prefill "
+        f"{prefill_paths}, in the capture {capture_paths}")
+    del model, logits, saved, graph_c, eager_c
+    torch.cuda.empty_cache()
+    return time_mla_kernels(dev, cfg, launches)
+
+
+def time_mla_kernels(dev, cfg, launches: dict) -> list:
+    """Phase 40's kernels at gen-mla-32k's shapes, bf16.  B3 on the
+    prefill's padded heads (4 x 32,768, 16 heads, q, k, v at 256): held to
+    the chunked plain version of the same padded call, then timed beside
+    it and two bounds, ``bound_ms`` on the work attention needs (pairs at
+    192 and 128, q, k, v and o at their widths) and ``executed_bound_ms``
+    on what the padded call does (256 and 256); and the whole
+    ``decompressed_attention`` with its padding copies.  The absorbed
+    decode attention (``mla.absorbed_attention``, plain products) of 4
+    rows over the last step's 32,896 slots: held to a float32 evaluation
+    of the decompressed attention from the same latent cache, timed by
+    CUDA events and by the profiler's device time, beside its bound (the
+    latent cache read once) and its executed bytes (``c_kv`` read twice,
+    for the scores and for ``p c_kv``)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import (
+        WGMMA_HEAD_DIMS, flash_attention_bhsd)
+    from repro_torch.models import mla
+
+    dims = mla.mla_dims(cfg)
+    B, S, N = MLA_SHAPE
+    H, Dn, Dr, Dv, R = dims.n_heads, dims.nope, dims.rope, dims.v, \
+        dims.kv_rank
+    P = min(p for p in WGMMA_HEAD_DIMS if p >= max(dims.qk, Dv))
+    g = torch.Generator(dev).manual_seed(40)
+
+    def r(*shape, std=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * std).to(
+            torch.bfloat16)
+    q_nope, q_pe, k_nope, v = (r(B, S, H, Dn), r(B, S, H, Dr),
+                               r(B, S, H, Dn), r(B, S, H, Dv))
+    k_pe = r(B, S, Dr)
+    pre = dims.scale * P ** 0.5
+    qp, kp, vp = (torch.zeros(B, S, H, P, dtype=torch.bfloat16, device=dev)
+                  for _ in range(3))
+    qp[..., :Dn], qp[..., Dn:dims.qk] = q_nope.float() * pre, \
+        q_pe.float() * pre
+    kp[..., :Dn], kp[..., Dn:dims.qk] = k_nope, k_pe[:, :, None]
+    vp[..., :Dv] = v
+    q4, k4, v4 = (t.transpose(1, 2) for t in (qp, kp, vp))
+
+    def kernel():
+        return flash_attention_bhsd(q4, k4, v4, causal=True)
+    name = f"flash_attention_bf16_b{B}_s{S}_h{H}d{P}_mla_padded"
+    err = _held_to_plain(kernel(), flash_plain_chunked(q4, k4, v4), name,
+                         "flash")
+    ms, plain_ms = _time_pair(kernel, lambda: flash_plain_chunked(q4, k4,
+                                                                  v4))
+    whole_ms = cuda_ms(lambda: mla.decompressed_attention(
+        q_nope, q_pe, k_nope, k_pe, v, dims.scale), iters=5)
+    pairs = B * H * S * (S + 1) // 2
+    need_flops = 2 * pairs * (dims.qk + Dv)
+    need_bytes = 2 * B * S * H * (2 * dims.qk + 2 * Dv)    # q, k, v, o
+    done_flops = 4 * pairs * P
+    done_bytes = 2 * B * S * H * 4 * P
+    bound_ms, bound_by = _bound(need_bytes, need_flops)
+    done_ms, done_by = _bound(done_bytes, done_flops)
+    dev_ms = _device_ms_per_call(kernel, calls=5)
+    log(f"{name}: wgmma route: max abs err {err:.3g}, kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, the whole padded call with its copies "
+        f"{whole_ms:.4f} ms; bound on the needed work {bound_ms:.4f} ms "
+        f"({bound_by}; {need_flops} flop at {dims.qk}/{Dv}, {need_bytes} "
+        f"B), on the executed {done_ms:.4f} ms ({done_by}; {done_flops} "
+        f"flop at {P}/{P}); achieved {need_flops / (ms * 1e-3) / 1e12:.2f} "
+        f"TFLOP/s needed, {done_flops / (ms * 1e-3) / 1e12:.2f} executed; "
+        f"device time per call (profiler): kernel {dev_ms}")
+    out = [{"name": name, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:77",
+            "launches": launches["flash"], "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "whole_call_ms": whole_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "executed_bound_ms": done_ms, "executed_bound_by": done_by,
+            "library_ms": None}]
+    del q_nope, q_pe, k_nope, v, k_pe, qp, kp, vp, q4, k4, v4
+    torch.cuda.empty_cache()
+
+    Sc = S + N
+    ckv = r(B, Sc, R)
+    kpe = r(B, Sc, Dr)
+    wkv_b = r(R, H, Dn + Dv, std=R ** -0.5)
+    qn, qr = r(B, H, Dn), r(B, H, Dr)
+    masked = torch.zeros(B, Sc, dtype=torch.bool, device=dev)
+
+    def absorbed():
+        return mla.absorbed_attention(qn, qr, ckv, kpe, wkv_b, masked,
+                                      dims.scale)
+    kv = (ckv.float() @ wkv_b.float().reshape(R, -1)).view(B, Sc, H, -1)
+    s = (torch.einsum("bhn,bshn->bhs", qn.float(), kv[..., :Dn])
+         + torch.einsum("bhr,bsr->bhs", qr.float(), kpe.float())) \
+        * dims.scale
+    want = torch.einsum("bhs,bshv->bhv", torch.softmax(s, -1), kv[..., Dn:])
+    del kv, s
+    name = f"mla_absorbed_decode_bf16_b{B}_sc{Sc}_h{H}"
+    err = _held_to_plain(absorbed(), want, name, "flash")
+    ms = cuda_ms(absorbed, iters=50)
+    dev_ms = _device_ms_per_call(absorbed, calls=20)
+    need_bytes = 2 * B * Sc * (R + Dr) + 2 * R * H * (Dn + Dv)
+    done_bytes = need_bytes + 2 * B * Sc * R
+    flops = 2 * B * H * (Sc * (2 * R + Dr) + R * (Dn + Dv))
+    bound_ms, bound_by = _bound(need_bytes, flops)
+    log(f"{name}: plain products (torch.bmm, float32 scores): max abs err "
+        f"{err:.3g} against float32 decompressed attention, {ms:.4f} ms by "
+        f"CUDA events, device time per call {dev_ms}; bound {bound_ms:.4f} "
+        f"ms ({bound_by}; the latent cache and W_kv_b read once, "
+        f"{need_bytes} B, {flops} flop), executed bytes {done_bytes} "
+        f"({_bound(done_bytes, flops)[0]:.4f} ms)")
+    out.append({"name": name, "route": "torch", "source":
+                "src/repro_torch/models/mla.py", "replaces": None,
+                "launches": None, "max_abs_err": err, "ms": ms,
+                "dev_ms": dev_ms, "plain_ms": None, "bound_ms": bound_ms,
+                "bound_by": bound_by, "executed_bytes": done_bytes,
+                "library_ms": None})
+    return out
 
 
 if __name__ == "__main__":

@@ -15,10 +15,12 @@ from repro_torch.configs.base import (
     EncDecConfig,
     HybridMoEConfig,
     Mamba2Config,
+    MLAConfig,
     ModelConfig,
     MoEConfig,
     ShapeCell,
     SSMConfig,
+    YarnScaling,
     cell_applicable,
     input_specs,
 )
@@ -36,6 +38,7 @@ from repro_torch.configs.qwen2_vl_7b import CONFIG as QWEN2_VL_7B
 from repro_torch.configs.granite_4_0_h_small import (
     CONFIG as GRANITE_4_0_H_SMALL,
 )
+from repro_torch.configs.deepseek_v2_lite import CONFIG as DEEPSEEK_V2_LITE
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c
@@ -56,7 +59,7 @@ ARCHS: dict[str, ModelConfig] = {
 
 # the port's own architectures, with no twin in the JAX package
 PORT_ARCHS: dict[str, ModelConfig] = {
-    c.name: c for c in (GRANITE_4_0_H_SMALL,)
+    c.name: c for c in (GRANITE_4_0_H_SMALL, DEEPSEEK_V2_LITE)
 }
 
 
@@ -78,6 +81,8 @@ __all__ = [
     "EncDecConfig",
     "HybridMoEConfig",
     "Mamba2Config",
+    "MLAConfig",
+    "YarnScaling",
     "ShapeCell",
     "ALL_CELLS",
     "CELLS_BY_NAME",

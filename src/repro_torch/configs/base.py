@@ -29,6 +29,13 @@ class MoEConfig:
     # router logits for padding experts are masked to -inf.
     router_jitter: float = 0.0
     capacity_factor: float = 1.25
+    # port-only, each at the JAX package's behaviour by default: the top-k
+    # gates over their sum (off: the router's probabilities as they are,
+    # DeepSeek-V2's ``norm_topk_prob`` false), and the shared experts
+    # behind a sigmoid gate (qwen2-moe; off: added as they are, DeepSeek-V2
+    # and granite-4.0-h)
+    renormalize: bool = True
+    shared_gated: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
@@ -240,3 +247,44 @@ class HybridMoEConfig(ModelConfig):
         n = len(self.layer_types)
         return next(p for p in range(1, n + 1) if n % p == 0 and
                     self.layer_types == self.layer_types[:p] * (n // p))
+
+
+@dataclasses.dataclass(frozen=True)
+class YarnScaling:
+    """YaRN's stretch of the rotary frequencies (Peng et al. 2023, as
+    DeepSeek-V2 applies it): the frequencies whose wavelength fits
+    ``original_max_position`` more than ``beta_fast`` times keep their
+    value, those that fit fewer than ``beta_slow`` times are divided by
+    ``factor``, and a linear ramp over the dimensions between them blends
+    the two; cos and sin are scaled by ``mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim)``, and the softmax's scale by
+    ``mscale(factor, mscale_all_dim)`` squared
+    (``models.layers.yarn_mscale``)."""
+    factor: float
+    original_max_position: int
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig(ModelConfig):
+    """DeepSeek-V2's stack (``family`` ``"mla_moe"``): every layer's
+    attention is multi-head latent attention (``models.mla``): per token
+    one latent ``c_kv`` of ``kv_lora_rank`` values (RMS-normed) and one
+    rotary key ``k_pe`` of ``qk_rope_head_dim`` shared by the heads are
+    cached; each head's query is ``qk_nope_head_dim`` plain and
+    ``qk_rope_head_dim`` rotary values (no compression of q), its key's
+    plain part and its value (``v_head_dim``) are decompressed from
+    ``c_kv``.  The rotary runs under ``rope_scaling`` (YaRN) where given.
+    The first ``first_k_dense_replace`` layers have a dense SwiGLU of
+    ``d_ff``, the others the experts of ``moe`` with its shared experts;
+    every RMSNorm takes ``norm_eps``."""
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    rope_scaling: Optional[YarnScaling] = None
+    first_k_dense_replace: int = 0
+    norm_eps: float = 1e-6

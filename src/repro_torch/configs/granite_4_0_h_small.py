@@ -22,7 +22,8 @@ CONFIG = HybridMoEConfig(
     norm="rmsnorm",
     mlp="swiglu",
     tie_embeddings=True,
-    moe=MoEConfig(n_experts=72, top_k=10, d_ff_expert=768),
+    moe=MoEConfig(n_experts=72, top_k=10, d_ff_expert=768,
+                  shared_gated=False),
     ssm=Mamba2Config(version=2, d_state=128, d_conv=4, expand=2,
                      head_dim=64, chunk=256, n_groups=1),
     layer_types=PERIOD * 4,

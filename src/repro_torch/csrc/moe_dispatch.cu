@@ -16,7 +16,8 @@
 //   * softmax over each token's logits, the padded experts (e >= n_experts)
 //     masked to -1e30 as the plain path masks them; the top-k experts by
 //     probability (the lower index first on equal values); the gates, the
-//     k probabilities over their sum (at least 1e-9);
+//     k probabilities over their sum (at least 1e-9), or the probabilities
+//     as they are where the launch asks for no renormalisation (DeepSeek-V2);
 //   * the switch aux loss, n_experts * sum_e mean_n(p[n, e]) * count_e /
 //     (N k), in block (0, 0);
 //   * each assignment's slot in its expert's bucket: the number of earlier
@@ -106,6 +107,7 @@ struct DispatchArgs {
   int* slots;            // [N, k]
   float* aux;            // scalar
   int n_tokens, e_pad, n_experts, top_k, capacity, row_vecs;
+  int renormalize;       // 0: the gates are the probabilities as they are
 };
 
 // An expert's key for the warp-wide top-k: its probability's bits (p >= 0
@@ -206,7 +208,7 @@ __global__ void __launch_bounds__(kThreads)
       if (sub == 0) {
         s_rank[n] = (chosen >> e) & 1 ? __popcll(chosen & ((1ull << e) - 1))
                                       : -1;
-        s_gate[n] = mine / fmaxf(top, 1e-9f);
+        s_gate[n] = a.renormalize ? mine / fmaxf(top, 1e-9f) : mine;
       }
     }
   }
@@ -364,10 +366,11 @@ extern "C" {
 // logits [N, e_pad] float32; x [N, d] and xe [e_pad, capacity, d] with rows
 // of row_bytes (a multiple of 16); ge [e_pad, capacity] float32; slots
 // [N, top_k] int32; aux one float32.  All contiguous, 16-byte aligned.
+// renormalize 0 keeps the top-k probabilities as the gates.
 int moe_dispatch_launch(const void* logits, const void* x, void* xe,
                         void* ge, void* slots, void* aux, int n_tokens,
                         int e_pad, int n_experts, int top_k, int capacity,
-                        int row_bytes, void* stream) {
+                        int row_bytes, int renormalize, void* stream) {
   if (n_tokens < 1 || n_tokens * top_k > kMaxAssignments || e_pad < 1 ||
       e_pad > kMaxExperts || n_experts < 1 || n_experts > e_pad ||
       top_k < 1 || top_k > kMaxTopK || top_k > e_pad || capacity < 1 ||
@@ -380,7 +383,7 @@ int moe_dispatch_launch(const void* logits, const void* x, void* xe,
                        static_cast<int*>(slots),
                        static_cast<float*>(aux),
                        n_tokens, e_pad, n_experts, top_k, capacity,
-                       row_bytes / 16};
+                       row_bytes / 16, renormalize};
   const dim3 grid(e_pad, (capacity + kRowsPerBlock - 1) / kRowsPerBlock);
   moe_dispatch_kernel<<<grid, kThreads, 0,
                         static_cast<cudaStream_t>(stream)>>>(a);

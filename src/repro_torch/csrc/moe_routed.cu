@@ -20,7 +20,8 @@
 //   * softmax over the token's logits, the padded experts (e >= n_experts)
 //     masked to -1e30 as the plain path masks them; the top-k experts by
 //     probability (the lower index first on equal values); the gates, the
-//     k probabilities over their sum (at least 1e-9);
+//     k probabilities over their sum (at least 1e-9), or the probabilities
+//     as they are where the launch asks for no renormalisation (DeepSeek-V2);
 //   * idx and gates [N, k]: the token's experts and gates in expert order;
 //   * each assignment's rank in its block: the number of earlier tokens of
 //     the block that chose the same expert (per-expert bit masks over the
@@ -153,6 +154,7 @@ struct RouteArgs {
   int* ranks;            // [N, k]: the slots array, rewritten by the fill
   Work w;
   int n_tokens, e_pad, n_experts, top_k;
+  int renormalize;       // 0: the gates are the probabilities as they are
 };
 
 __global__ void __launch_bounds__(kRouteThreads)
@@ -224,7 +226,7 @@ __global__ void __launch_bounds__(kRouteThreads)
         }
     }
     // the token's experts in expert order: lanes, then the four quarters
-    const float norm = fmaxf(top, 1e-9f);
+    const float norm = a.renormalize ? fmaxf(top, 1e-9f) : 1.f;
     int before = 0;
 #pragma unroll
     for (int q = 0; q < kPerLane; ++q) {
@@ -455,12 +457,13 @@ size_t moe_routed_workspace_bytes(int n_tokens, int e_pad, int top_k) {
 // logits [N, e_pad] float32; x [N, d] and xe [e_pad, capacity, d] with rows
 // of row_bytes (a multiple of 16); ge [e_pad, capacity] float32; slots
 // [N, top_k] int32; aux one float32; work moe_routed_workspace_bytes.  All
-// contiguous; logits, x and xe 16-byte aligned.
+// contiguous; logits, x and xe 16-byte aligned.  renormalize 0 keeps the
+// top-k probabilities as the gates.
 int moe_routed_dispatch_launch(const void* logits, const void* x, void* xe,
                                void* ge, void* slots, void* aux, void* work,
                                int n_tokens, int e_pad, int n_experts,
                                int top_k, int capacity, int row_bytes,
-                               void* stream) {
+                               int renormalize, void* stream) {
   if (n_tokens < 1 || e_pad < 1 || e_pad > kMaxExperts || n_experts < 1 ||
       n_experts > e_pad || top_k < 1 || top_k > kMaxTopK || top_k > e_pad ||
       capacity < 1 ||
@@ -473,7 +476,7 @@ int moe_routed_dispatch_launch(const void* logits, const void* x, void* xe,
   const int blocks = route_blocks(n_tokens);
   const RouteArgs ra{static_cast<const float*>(logits),
                      static_cast<int*>(slots), w, n_tokens, e_pad,
-                     n_experts, top_k};
+                     n_experts, top_k, renormalize};
   moe_routed_route_kernel<<<blocks, kRouteThreads, 0, s>>>(ra);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);

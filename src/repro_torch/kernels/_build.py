@@ -142,13 +142,13 @@ def load_library() -> ctypes.CDLL:
     lib.msb_launch.restype = ci
     lib.msb_blocks.argtypes = [ci, ci]
     lib.msb_blocks.restype = ci
-    lib.moe_dispatch_launch.argtypes = [*[vp] * 6, *[ci] * 6, vp]
+    lib.moe_dispatch_launch.argtypes = [*[vp] * 6, *[ci] * 7, vp]
     lib.moe_dispatch_launch.restype = ci
     lib.moe_combine_launch.argtypes = [ci, *[vp] * 4, ci, ci, ci, vp]
     lib.moe_combine_launch.restype = ci
     lib.moe_limits.argtypes = [ci]
     lib.moe_limits.restype = ci
-    lib.moe_routed_dispatch_launch.argtypes = [*[vp] * 7, *[ci] * 6, vp]
+    lib.moe_routed_dispatch_launch.argtypes = [*[vp] * 7, *[ci] * 7, vp]
     lib.moe_routed_dispatch_launch.restype = ci
     lib.moe_routed_combine_launch.argtypes = [ci, *[vp] * 4, ci, ci, ci, vp]
     lib.moe_routed_combine_launch.restype = ci

@@ -99,9 +99,12 @@ def _check_dispatch(logits, x, n_experts: int, top_k: int,
     return True
 
 
-def moe_dispatch(logits, x, n_experts: int, top_k: int, capacity: int):
+def moe_dispatch(logits, x, n_experts: int, top_k: int, capacity: int,
+                 renormalize: bool = True):
     """logits [N, E_pad] float32, x [N, d] bf16 or float32 -> (xe [E_pad,
     C, d], ge [E_pad, C] float32, slots [N, k] int32, aux float32 scalar).
+    The gates are the top-k probabilities over their sum, or as they are
+    without ``renormalize``.
 
     Launches the kernel and adds one to ``moe_dispatch.launches``."""
     if not logits.is_cuda:
@@ -122,7 +125,8 @@ def moe_dispatch(logits, x, n_experts: int, top_k: int, capacity: int):
         raise ValueError("the kernel moves rows as 16-byte vectors: logits, "
                          "x and xe must be 16-byte aligned")
     err = launch(x.get_device(), lib.moe_dispatch_launch, *ptrs, N, E,
-                 n_experts, top_k, capacity, d * x.element_size())
+                 n_experts, top_k, capacity, d * x.element_size(),
+                 int(renormalize))
     if err:
         raise RuntimeError(f"moe_dispatch launch failed: cudaError {err}")
     moe_dispatch.launches += 1

@@ -98,10 +98,12 @@ def _check_dispatch(logits, x, n_experts: int, top_k: int,
     return True
 
 
-def moe_routed_dispatch(logits, x, n_experts: int, top_k: int,
-                        capacity: int):
+def moe_routed_dispatch(logits, x, n_experts: int, top_k: int, capacity: int,
+                        renormalize: bool = True):
     """logits [N, E_pad] float32, x [N, d] bf16 or float32 -> (xe [E_pad,
     C, d], ge [E_pad, C] float32, slots [N, k] int32, aux float32 scalar).
+    The gates are the top-k probabilities over their sum, or as they are
+    without ``renormalize``.
 
     Launches the route, offsets and fill kernels and adds three to
     ``moe_routed_dispatch.launches``."""
@@ -126,7 +128,8 @@ def moe_routed_dispatch(logits, x, n_experts: int, top_k: int,
         raise ValueError("the kernels move rows as 16-byte vectors: logits, "
                          "x and xe must be 16-byte aligned")
     err = launch(x.get_device(), lib.moe_routed_dispatch_launch, *ptrs, N, E,
-                 n_experts, top_k, capacity, d * x.element_size())
+                 n_experts, top_k, capacity, d * x.element_size(),
+                 int(renormalize))
     if err:
         raise RuntimeError(f"moe_routed_dispatch launch failed: cudaError "
                            f"{err}")

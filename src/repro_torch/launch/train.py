@@ -63,8 +63,11 @@ def tiny_config(cfg: ModelConfig, vocab: int = 512) -> ModelConfig:
     if cfg.mrope_sections is not None:
         over["mrope_sections"] = (4, 6, 6)
     if cfg.moe is not None:
+        # the port-only fields keep the family's gates and shared experts
         over["moe"] = MoEConfig(n_experts=8, top_k=2, d_ff_expert=64,
-                                n_shared_experts=cfg.moe.n_shared_experts and 2)
+                                n_shared_experts=cfg.moe.n_shared_experts and 2,
+                                renormalize=cfg.moe.renormalize,
+                                shared_gated=cfg.moe.shared_gated)
     if cfg.ssm is not None:
         over["ssm"] = SSMConfig(version=cfg.ssm.version, d_state=8,
                                 d_conv=4, expand=2, head_dim=32, dt_rank=8)

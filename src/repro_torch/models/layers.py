@@ -10,7 +10,8 @@ Conventions, as in the reference:
 Modules hold weights (``Norm``, ``MLP``); ``apply_norm``, ``apply_rope``,
 ``apply_mrope``, ``sinusoid_embed`` and ``apply_mlp`` are plain functions
 on tensors.  The
-rotary is split into its cos/sin (``rope_cos_sin``, ``mrope_cos_sin``) and
+rotary is split into its cos/sin (``rope_cos_sin``, ``mrope_cos_sin``, and
+``yarn_cos_sin`` for DeepSeek-V2's YaRN, a port-only addition) and
 ``rotate``, so that the model computes the angles once per call, not once
 per layer.  The init
 helpers draw from an explicit ``torch.Generator`` on the target device, and
@@ -129,6 +130,46 @@ def rope_cos_sin(positions, head_dim: int, theta: float):
     angles = positions[..., None].float() * freqs                 # [..., S, half]
     angles = angles[..., None, :]                                 # [..., S, 1, half]
     return torch.cos(angles), torch.sin(angles)
+
+
+def yarn_mscale(factor: float, mscale: float) -> float:
+    """YaRN's attention temperature: ``0.1 mscale ln(factor) + 1`` (1 for
+    ``factor <= 1``), as DeepSeek-V2's ``yarn_get_mscale``."""
+    return 1.0 if factor <= 1 else 0.1 * mscale * math.log(factor) + 1.0
+
+
+def yarn_frequencies(dim: int, theta: float, scaling,
+                     device=None) -> torch.Tensor:
+    """The rotary frequencies [dim // 2] of ``dim`` rotary channels under
+    YaRN (``configs.base.YarnScaling``), as DeepSeek-V2's
+    ``DeepseekV2YarnRotaryEmbedding``: the dimensions below the
+    correction range keep ``rope_frequencies``, those above it take them
+    over ``factor``, a linear ramp blends the range between."""
+    base = rope_frequencies(dim, theta, device)
+
+    def corr(rotations):     # the dimension at which that many rotations fit
+        return dim * math.log(scaling.original_max_position / (
+            rotations * 2 * math.pi)) / (2 * math.log(theta))
+
+    lo = max(math.floor(corr(scaling.beta_fast)), 0)
+    hi = min(math.ceil(corr(scaling.beta_slow)), dim - 1)
+    if lo == hi:
+        hi += 0.001
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device) - lo)
+            / (hi - lo)).clamp(0, 1)
+    keep = 1.0 - ramp
+    return base / scaling.factor * (1.0 - keep) + base * keep
+
+
+def yarn_cos_sin(positions, dim: int, theta: float, scaling):
+    """``rope_cos_sin`` under YaRN: the frequencies of
+    ``yarn_frequencies``, cos and sin scaled by ``mscale(factor, mscale)
+    / mscale(factor, mscale_all_dim)``."""
+    freqs = yarn_frequencies(dim, theta, scaling, positions.device)
+    angles = (positions[..., None].float() * freqs)[..., None, :]
+    m = (yarn_mscale(scaling.factor, scaling.mscale)
+         / yarn_mscale(scaling.factor, scaling.mscale_all_dim))
+    return torch.cos(angles) * m, torch.sin(angles) * m
 
 
 def mrope_cos_sin(positions_thw, head_dim: int, theta: float,

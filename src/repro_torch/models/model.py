@@ -21,6 +21,10 @@ periods per stage in place of the reference's stacked period axis:
   granite-4.0-h (port-only, ``hybrid_moe``):    1 stage, period = the
                                                  repeat of ``layer_types``
                                                  ([ssm x5, attn, ssm x4])
+  DeepSeek-V2 (port-only, ``mla_moe``):         ``mla_dense``: [mla(mlp)] x
+                                                 ``first_k_dense_replace``;
+                                                 ``mla_moe``: [mla(moe)] x
+                                                 the rest
 
 zamba2's shared attention block is one set of weights at the top level
 (``shared_block``), looked up by every period, with a K/V cache of its
@@ -30,8 +34,10 @@ stub, as in the reference) with sinusoidal positions; the decoder adds
 sinusoidal positions to its token embeddings, and each decoder layer
 attends the encoder's output through its ``cross`` attention, whose K/V
 prefill projects once and stores as ``xk``/``xv`` in the layer's cache
-entry.  A moe layer runs ``models.moe`` in place of its MLP (qwen2-moe
-adds shared experts behind a sigmoid gate); ``backbone`` returns its aux
+entry.  A moe layer runs ``models.moe`` in place of its MLP, with its
+shared experts where the configuration has them, behind a sigmoid gate
+(qwen2-moe) or added as they are (``MoEConfig.shared_gated`` off:
+DeepSeek-V2, granite-4.0-h; ``shared_experts``); ``backbone`` returns its aux
 loss summed over the layers, which ``Model.loss_fn`` weighs into the
 training loss and ``prefill`` and decoding drop, as the reference's do.
 
@@ -43,6 +49,14 @@ and logits by the configuration's multipliers (``HybridMoEConfig``).  In
 a prefill their mixers and feed-forwards are timed on the device when
 ``profiling.start_model_spans`` has turned the model's spans on.
 
+DeepSeek-V2's layers (``MLAConfig``, port-only) are ``AttnLayer``s whose
+attention is multi-head latent attention (``models.mla``: decompressed
+prefill on B3, absorbed decode over the latent cache), rotated under YaRN
+where the configuration stretches the rotary; their norms take the
+configuration's eps.  In a prefill, spans time each layer's latent
+attention (``mla_mixer``) and every ``AttnLayer``'s MLP or experts
+(``ffn``).
+
 Entry points: ``Model.loss_fn`` (training: ``backbone`` -> ``chunked_ce``,
 the cross-entropy in sequence chunks under ``torch.utils.checkpoint``;
 ``remat`` runs each period under it too), ``Model.forward``,
@@ -52,10 +66,11 @@ The cache is ``{stage: {"layer{i}": entry}}`` over the decoder stages
 (not whisper's encoder), with a leading period axis: an attention entry
 is ``{"k", "v"}``, ``[n_periods, B, Sc, KVs, Dh]`` (window layers hold a
 ring of ``Sc = window`` slots once the sequence is longer; whisper's
-decoder layers add ``"xk", "xv"``, ``[n_periods, B, T, KVs, Dh]``), an
-ssm entry ``{"conv": [n_periods, B, K-1, di]`` in the config
-dtype, ``"ssm": [n_periods, B, di, n]`` (Mamba-1) or ``[n_periods, B, nh,
-hd, n]`` (Mamba-2) in float32``}``.  Unlike the reference, ``decode_step``
+decoder layers add ``"xk", "xv"``, ``[n_periods, B, T, KVs, Dh]``), a
+latent attention entry ``{"ckv": [n_periods, B, Sc, R], "kpe":
+[n_periods, B, Sc, Dr]}``, an ssm entry ``{"conv": [n_periods, B, K-1,
+di]`` in the config dtype, ``"ssm": [n_periods, B, di, n]`` (Mamba-1) or
+``[n_periods, B, nh, hd, n]`` (Mamba-2) in float32``}``.  Unlike the reference, ``decode_step``
 writes the new token's K/V and the new ssm states into the cache it is
 given, in place, and returns that cache: a functional update would copy
 the whole cache every token, and a cache that stays put can be captured
@@ -126,6 +141,7 @@ from repro_torch.dist.sharding import (
     tree_map,
 )
 from repro_torch.kernels._graph import GraphCache, storage_key
+from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention import (
@@ -148,6 +164,7 @@ from repro_torch.models.layers import (
     rotate,
     sinusoid_embed,
     sinusoid_positions,
+    yarn_cos_sin,
 )
 
 # ---------------------------------------------------------------------------
@@ -157,7 +174,7 @@ from repro_torch.models.layers import (
 
 @dataclasses.dataclass(frozen=True)
 class LayerSpec:
-    kind: str                       # attn | ssm | shared_attn | enc_attn | dec_attn
+    kind: str                       # attn | mla | ssm | shared_attn | enc_attn | dec_attn
     window: Optional[int] = None    # sliding-window size (None = full)
     rope_theta: float = 10_000.0
     causal: bool = True
@@ -201,6 +218,13 @@ def build_plan(cfg: ModelConfig) -> List[Stage]:
         return [Stage("hybrid_moe",
                       tuple(kinds[t] for t in cfg.layer_types[:p]),
                       cfg.n_layers // p)]
+    if cfg.family == "mla_moe":
+        k = cfg.first_k_dense_replace
+        dense = LayerSpec(kind="mla", rope_theta=cfg.rope_theta, mlp=cfg.mlp)
+        moe = LayerSpec(kind="mla", rope_theta=cfg.rope_theta, moe=True)
+        return [stage for stage in (Stage("mla_dense", (dense,), k),
+                                    Stage("mla_moe", (moe,), cfg.n_layers - k))
+                if stage.n_periods]
     if cfg.family == "audio" and cfg.encdec is not None:
         enc = LayerSpec(kind="enc_attn", causal=False, mlp=cfg.mlp,
                         use_rope=False)
@@ -251,40 +275,73 @@ def _layout(cfg: ModelConfig) -> Optional[HeadLayout]:
 # ---------------------------------------------------------------------------
 
 
+def add_shared_experts(layer: nn.Module, moe_cfg, d: int, d_ff: int, dtype,
+                       device, generator) -> None:
+    """Give ``layer`` its shared experts, one SwiGLU of ``d_ff``
+    (``shared_mlp``), and their gate ``shared_gate`` [d, 1] where
+    ``moe_cfg.shared_gated``."""
+    layer.shared_mlp = MLP("swiglu", d, d_ff, dtype, device, generator)
+    if moe_cfg.shared_gated:
+        layer.shared_gate = nn.Parameter(dense_init(d, 1, dtype, device,
+                                                    generator))
+
+
+def shared_experts(layer: nn.Module, h, y):
+    """``y`` plus ``layer``'s shared experts on ``h``: behind their sigmoid
+    gate in float32 where it has one (qwen2-moe), else added as they are
+    (DeepSeek-V2, granite-4.0-h); ``y`` alone without shared experts."""
+    if not hasattr(layer, "shared_mlp"):
+        return y
+    s = layer.shared_mlp(h)
+    if not hasattr(layer, "shared_gate"):
+        return y + s
+    g = torch.sigmoid((h @ layer.shared_gate).float())
+    return y + (g * s.float()).to(y.dtype)
+
+
+def norm_eps(cfg: ModelConfig) -> float:
+    """The eps of ``cfg``'s norms: its own where it states one
+    (``MLAConfig``, ``HybridMoEConfig``), else the reference's 1e-6."""
+    return getattr(cfg, "norm_eps", 1e-6)
+
+
 class AttnLayer(nn.Module):
     """norm1 -> attention -> residual; for whisper's decoder, norm_x ->
     cross-attention over the encoder's output -> residual; norm2 -> MLP or
     experts -> residual (the reference's ``_attn_layer_full`` and
     ``_attn_layer_decode``).  Parameter names follow the reference's layer
     tree (``norm1``, ``attn``, ``norm_x``, ``cross``, ``norm2``, ``mlp`` or
-    ``moe``, ``shared_mlp``, ``shared_gate``)."""
+    ``moe``, ``shared_mlp``, ``shared_gate``).  A ``mla`` template's
+    ``attn`` is latent attention (``models.mla.MLA``)."""
 
     def __init__(self, spec: LayerSpec, cfg: ModelConfig, layout: HeadLayout,
                  device, generator):
         super().__init__()
         dtype = cfg.param_dtype()
-        d = cfg.d_model
+        d, eps = cfg.d_model, norm_eps(cfg)
         self.spec, self.cfg, self.layout = spec, cfg, layout
-        self.norm1 = Norm(cfg.norm, d, dtype, device)
-        self.attn = Attention(d, layout, dtype, device, generator,
-                              bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
+        self.norm1 = Norm(cfg.norm, d, dtype, device, eps=eps)
+        if spec.kind == "mla":
+            self.attn = mla_mod.MLA(mla_mod.mla_dims(cfg), dtype, device,
+                                    generator)
+        else:
+            self.attn = Attention(d, layout, dtype, device, generator,
+                                  bias=cfg.qkv_bias, qk_norm=cfg.qk_norm)
         if spec.cross:
             self.norm_x = Norm(cfg.norm, d, dtype, device)
             self.cross = Attention(d, layout, dtype, device, generator,
                                    bias=cfg.qkv_bias)
         if spec.moe:
-            self.norm2 = Norm(cfg.norm, d, dtype, device)
+            self.norm2 = Norm(cfg.norm, d, dtype, device, eps=eps)
             self.moe = moe_mod.MoE(moe_mod.moe_dims(cfg.moe, d,
                                                     mesh_ctx().tp),
                                    dtype, device, generator)
             if cfg.moe.n_shared_experts:
-                self.shared_mlp = MLP(
-                    "swiglu", d, cfg.moe.n_shared_experts
-                    * cfg.moe.d_ff_expert, dtype, device, generator)
-                self.shared_gate = nn.Parameter(dense_init(
-                    d, 1, dtype, device, generator))
+                add_shared_experts(self, cfg.moe, d, cfg.moe.n_shared_experts
+                                   * cfg.moe.d_ff_expert, dtype, device,
+                                   generator)
         elif spec.mlp is not None:
-            self.norm2 = Norm(cfg.norm, d, dtype, device)
+            self.norm2 = Norm(cfg.norm, d, dtype, device, eps=eps)
             self.mlp = MLP(spec.mlp, d, cfg.d_ff, dtype, device, generator)
 
     def _qkv(self, x, rot):
@@ -298,16 +355,13 @@ class AttnLayer(nn.Module):
         return q, k, v
 
     def _ffn(self, x):
-        """norm2 -> MLP, or the experts (plus the shared experts behind
-        their sigmoid gate, in float32) -> residual.  Returns (x, aux): the
-        experts' float32 aux loss, None without experts."""
+        """norm2 -> MLP, or the experts (plus the shared experts,
+        ``shared_experts``) -> residual.  Returns (x, aux): the experts'
+        float32 aux loss, None without experts."""
         if self.spec.moe:
             h = self.norm2(x)
             y, aux = self.moe(h)
-            if hasattr(self, "shared_mlp"):
-                g = torch.sigmoid((h @ self.shared_gate).float())
-                y = y + (g * self.shared_mlp(h).float()).to(y.dtype)
-            return x + y, aux
+            return x + shared_experts(self, h, y), aux
         if self.spec.mlp is not None:
             return x + self.mlp(self.norm2(x)), None
         return x, None
@@ -318,7 +372,16 @@ class AttnLayer(nn.Module):
         when the sequence is longer: slot j holds the last token with
         ``pos % window == j``), and the experts' aux loss (None without
         experts); a cross layer projects the cross K/V from ``enc_out``
-        [B, T, d] and adds them to its entry as ``xk``/``xv``."""
+        [B, T, d] and adds them to its entry as ``xk``/``xv``; a latent
+        attention layer's entry is ``{ckv, kpe}``."""
+        if self.spec.kind == "mla":
+            with profiling.model_span("mla_mixer", x.device):
+                y, entry = self.attn.prefill(self.norm1(x), rot)
+            x = x + y
+            del y
+            with profiling.model_span("ffn", x.device):
+                x, aux = self._ffn(x)
+            return x, (entry if want_cache else None), aux
         S = x.shape[1]
         q, k, v = self._qkv(x, rot)
         o = flash_attention(q, k, v, self.layout, causal=self.spec.causal,
@@ -332,7 +395,8 @@ class AttnLayer(nn.Module):
             xk, xv = self.cross.project_kv(enc_out)
             x = shard(x + self.cross.output_proj(cross_attention(
                 xq, xk, xv, self.layout)), "dp", "sp", None)
-        x, aux = self._ffn(x)
+        with profiling.model_span("ffn", x.device):
+            x, aux = self._ffn(x)
         x = shard(x, "dp", "sp", None)
         if not want_cache:
             return x, None, aux
@@ -345,8 +409,12 @@ class AttnLayer(nn.Module):
         return x, entry, aux
 
     def decode(self, x, rot, entry, step: "DecodeStep"):
-        """One token against a cache entry [B, Sc, KVs, Dh], written in
-        place at ``step``'s slot for this cache (``DecodeStep.slots``)."""
+        """One token against a cache entry [B, Sc, KVs, Dh] (a latent
+        attention layer's ``{ckv, kpe}``), written in place at ``step``'s
+        slot for this cache (``DecodeStep.slots``)."""
+        if self.spec.kind == "mla":
+            x = x + self.attn.decode(self.norm1(x), rot, entry, step)
+            return self._ffn(x)[0]
         q, k, v = self._qkv(x, rot)
         kc, vc = entry["k"], entry["v"]
         Sc = kc.shape[1]
@@ -427,8 +495,8 @@ class HybridMoELayer(nn.Module):
         self.norm2 = Norm(cfg.norm, d, dtype, device, eps=eps)
         self.moe = moe_mod.MoE(moe_mod.moe_dims(cfg.moe, d, mesh_ctx().tp),
                                dtype, device, generator)
-        self.shared_mlp = MLP("swiglu", d, cfg.shared_d_ff, dtype, device,
-                              generator)
+        add_shared_experts(self, cfg.moe, d, cfg.shared_d_ff, dtype, device,
+                           generator)
 
     def _qkv(self, h):
         q = self.attn.project_q(h)
@@ -439,7 +507,7 @@ class HybridMoELayer(nn.Module):
         """(x + m (experts + shared expert)(norm2 x), the experts' aux)."""
         h = self.norm2(x)
         y, aux = self.moe(h)
-        return x + (y + self.shared_mlp(h)) * self.res, aux
+        return x + shared_experts(self, h, y) * self.res, aux
 
     def full(self, x, rot, *, want_cache: bool, enc_out=None):
         """Prefill from scratch: (y, the cache entry | None, aux); the
@@ -667,12 +735,12 @@ class Model(nn.Module):
         dtype = cfg.param_dtype()
         self.embed = nn.Parameter(embed_init(cfg.padded_vocab, cfg.d_model,
                                              dtype, device, generator))
-        self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device)
-        # granite-4.0-h's norm eps, embedding and logits multipliers
+        self.final_norm = Norm(cfg.norm, cfg.d_model, dtype, device,
+                               eps=norm_eps(cfg))
+        # granite-4.0-h's embedding and logits multipliers
         hybrid_moe = isinstance(cfg, HybridMoEConfig)
         self.embed_scale = self.logits_scaling = None
         if hybrid_moe:
-            self.final_norm.eps = cfg.norm_eps
             self.embed_scale = cfg.embedding_multiplier
             self.logits_scaling = cfg.logits_scaling
         if not cfg.tie_embeddings:
@@ -742,6 +810,14 @@ class Model(nn.Module):
         for spec in {s for stage in self.plan for s in stage.specs}:
             if spec.kind == "ssm":
                 out[spec] = None
+                continue
+            if spec.kind == "mla":
+                cfg = self.cfg
+                out[spec] = (rope_cos_sin(positions, cfg.qk_rope_head_dim,
+                                          spec.rope_theta)
+                             if cfg.rope_scaling is None else yarn_cos_sin(
+                                 positions, cfg.qk_rope_head_dim,
+                                 spec.rope_theta, cfg.rope_scaling))
                 continue
             dh = self.layout.d_head
             if spec.use_mrope:
@@ -992,6 +1068,9 @@ def _entry_specs(spec: LayerSpec, cfg: ModelConfig, layout, batch: int,
     if spec.kind == "ssm":
         dims = ssm_mod.ssm_dims(cfg.ssm, cfg.d_model)
         return ssm_mod.ssm_state_specs(dims, batch, dtype)
+    if spec.kind == "mla":
+        return mla_mod.mla_entry_specs(mla_mod.mla_dims(cfg), batch, seq,
+                                       dtype)
     sc = min(seq, spec.window) if spec.window is not None else seq
     shapes = {n: (batch, sc, layout.kv_store, layout.d_head)
               for n in ("k", "v")}
@@ -1005,7 +1084,8 @@ def _entry_specs(spec: LayerSpec, cfg: ModelConfig, layout, batch: int,
 def cache_specs(cfg: ModelConfig, batch: int, seq: int):
     """The cache tree of prefill/decode as ``meta`` tensors (shape and
     dtype): window layers hold ``min(seq, window)`` slots, ssm layers
-    their fixed-size states, cross layers the encoder context's K/V."""
+    their fixed-size states, cross layers the encoder context's K/V,
+    latent attention layers ``seq`` slots of ``c_kv`` and ``k_pe``."""
     layout = _layout(cfg)
     out = {}
     for stage in build_plan(cfg):
@@ -1025,7 +1105,8 @@ def cache_specs(cfg: ModelConfig, batch: int, seq: int):
 def grow_cache(cache, cfg: ModelConfig, batch: int, seq: int):
     """A prefill cache zero-padded to ``cache_specs(cfg, batch, seq)``, as
     the reference's callers pad theirs before decoding (ssm states and the
-    cross K/V keep their size and are copied)."""
+    cross K/V keep their size and are copied; the latent cache grows on
+    its slots, as K/V do)."""
     out = {}
     for stage, layers in cache_specs(cfg, batch, seq).items():
         out[stage] = {}
@@ -1060,8 +1141,9 @@ def _layer_axes(spec: LayerSpec, cfg: ModelConfig, layout):
             ssm_mod.ssm_dims(cfg.ssm, cfg.d_model))
         return a
     a["norm1"] = _norm_axes(cfg)
-    a["attn"] = attn_param_axes(layout, bias=cfg.qkv_bias,
-                                qk_norm=cfg.qk_norm)
+    a["attn"] = (mla_mod.mla_param_axes() if spec.kind == "mla" else
+                 attn_param_axes(layout, bias=cfg.qkv_bias,
+                                 qk_norm=cfg.qk_norm))
     if spec.cross:
         a["norm_x"] = _norm_axes(cfg)
         a["cross"] = attn_param_axes(layout, bias=cfg.qkv_bias)
@@ -1071,7 +1153,8 @@ def _layer_axes(spec: LayerSpec, cfg: ModelConfig, layout):
         if cfg.moe.n_shared_experts:
             a["shared_mlp"] = {"w_gate": (None, "tp"), "w_up": (None, "tp"),
                                "w_down": ("tp", None)}
-            a["shared_gate"] = (None, None)
+            if cfg.moe.shared_gated:
+                a["shared_gate"] = (None, None)
     elif spec.mlp is not None:
         a["norm2"] = _norm_axes(cfg)
         a["mlp"] = (
@@ -1195,6 +1278,9 @@ def _cache_entry_axes(spec: LayerSpec, cfg: ModelConfig, layout):
             return {"conv": ("dp", None, "tp"), "ssm": ("dp", "tp", None)}
         return {"conv": ("dp", None, "tp"),
                 "ssm": ("dp", "tp", None, None)}
+    if spec.kind == "mla":
+        # one latent and one rotary key a token, shared by every head
+        return {"ckv": ("dp", None, None), "kpe": ("dp", None, None)}
     kv_ax = ("tp" if layout is not None
              and layout.kv_store % mesh_ctx().tp == 0 else None)
     seq_ax = None if kv_ax == "tp" else "tp"

@@ -1,7 +1,9 @@
 """Mixture-of-Experts: the port of ``src/repro/models/moe.py``.
 
 Dispatch is gather-based, as in the reference: route (softmax over the
-router's float32 logits, top-k, renormalised gates, the switch aux loss),
+router's float32 logits, top-k, renormalised gates, the switch aux loss;
+the port-only ``MoEConfig.renormalize`` off keeps the top-k probabilities
+as they are, as DeepSeek-V2 does),
 capacity buckets (the assignments sorted by expert with a stable sort, at
 most ``C`` to a bucket, the rest dropped), the experts' swiglu FFN as
 batched matrix products over ``[E, C, d]``, then the combine back to token
@@ -99,6 +101,7 @@ class MoEDims:
     d_model: int
     d_ff: int
     capacity_factor: float
+    renormalize: bool = True
 
 
 def moe_dims(cfg: MoEConfig, d_model: int, ep: int = 1) -> MoEDims:
@@ -110,6 +113,7 @@ def moe_dims(cfg: MoEConfig, d_model: int, ep: int = 1) -> MoEDims:
         d_model=d_model,
         d_ff=cfg.d_ff_expert,
         capacity_factor=cfg.capacity_factor,
+        renormalize=cfg.renormalize,
     )
 
 
@@ -168,10 +172,13 @@ def router_probs(router_w, x, dims: MoEDims):
 
 
 def _route(router_w, x, dims: MoEDims):
-    """x: [N, d] -> (gates [N, k] f32, expert_idx [N, k] int64, aux loss)."""
+    """x: [N, d] -> (gates [N, k] f32, expert_idx [N, k] int64, aux loss).
+    The gates are the top-k probabilities over their sum, or as they are
+    without ``dims.renormalize``."""
     probs = router_probs(router_w, x, dims)
     gates, idx = torch.topk(probs, dims.top_k, dim=-1)           # [N, k]
-    gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
+    if dims.renormalize:
+        gates = gates / gates.sum(-1, keepdim=True).clamp_min(1e-9)
     # switch-style load-balance aux loss over real experts
     me = probs[:, :dims.n_experts].mean(0)
     # one_hot(idx).sum(1) as a scatter of ones: exact in any order
@@ -284,7 +291,8 @@ def _moe_kernels(dispatch, combine, params: Dict[str, torch.Tensor], x,
     ``_expert_ffn``."""
     logits = x.float() @ params["router"]                        # [N, E_pad]
     xe, ge, slots, aux = dispatch(logits, x, dims.n_experts, dims.top_k,
-                                  _capacity(x.shape[0], dims))
+                                  _capacity(x.shape[0], dims),
+                                  renormalize=dims.renormalize)
     y_e = _expert_ffn(params["w_gate"], params["w_up"], params["w_down"], xe)
     return combine(y_e, ge, slots), aux
 

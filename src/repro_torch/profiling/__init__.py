@@ -489,11 +489,12 @@ def format_summary(summary: Dict[str, dict]) -> str:
 
 # -- the model path's device time (port-only) ----------------------------------
 
-# Device-time spans of a hybrid model's layers (``models.model.
-# HybridMoELayer.full``, eager calls only: a captured graph's replays run
-# no Python): each layer's mixer, by kind, and its feed-forward (the
-# experts and the shared expert).
-MODEL_SITES = ("ssm_mixer", "attn_mixer", "ffn")
+# Device-time spans of a prefill's layers (``models.model.HybridMoELayer.
+# full`` and ``AttnLayer.full``, eager calls only: a captured graph's
+# replays run no Python): a hybrid layer's mixer, by kind, a latent
+# attention layer's attention (``mla_mixer``), and each layer's
+# feed-forward (the MLP, or the experts and the shared experts).
+MODEL_SITES = ("ssm_mixer", "attn_mixer", "ffn", "mla_mixer")
 
 _UNTIMED = contextlib.nullcontext()
 

@@ -3,7 +3,8 @@
 (``tests/plain/granite_4_h.py``), on the CPU at toy widths in float32.
 
 The toy model has two periods of [mamba, attention, mamba], Mamba-2 with
-two groups of B and C, 8 experts top-2 and a shared expert, and
+two groups of B and C, 8 experts top-2 and a shared expert with no gate
+(``MoEConfig.shared_gated`` off, as granite-4.0-h's configuration has it), and
 granite's multipliers; its weights are the program's own draw from a
 seeded generator, carried to the reference's names.  The experts drop
 tokens past capacity in both.  Tolerances: logits within atol 1e-4 and
@@ -44,7 +45,8 @@ def tiny(**over):
         layer_types=("mamba", "attention", "mamba") * 2, d_model=64,
         n_heads=4, n_kv_heads=2, d_head=16, d_ff=32, vocab_size=257,
         vocab_pad_multiple=8, dtype="float32", shared_d_ff=48,
-        moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32),
+        moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=32,
+                      shared_gated=False),
         ssm=Mamba2Config(version=2, d_state=8, d_conv=4, expand=2,
                          head_dim=16, chunk=8, n_groups=2))
     return dataclasses.replace(cfg, **over)
@@ -423,5 +425,6 @@ def test_model_spans_are_off_by_default_and_time_each_kind(toy):
     finally:
         assert profiling.stop_model_spans() is spans
     assert spans.counts == {"ssm_mixer": 4, "attn_mixer": 2, "ffn": 6}
-    assert set(spans.totals()) == set(profiling.MODEL_SITES)
+    assert set(spans.totals()) == {"ssm_mixer", "attn_mixer", "ffn"} <= set(
+        profiling.MODEL_SITES)
     assert profiling.model_span("ssm_mixer", cpu) is profiling._UNTIMED

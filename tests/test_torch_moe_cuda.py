@@ -41,7 +41,10 @@ everything past the fused path's limits that the card takes):
   experts top-4, d_model 2,048) over 64; routed: granite-4.0-h's widths
   (72 experts top-10, d_model 4,096) over 4, 64 and 4,096 tokens and over
   32,768 (its buckets 3.4 GB in bf16, past 2^31 bytes), granite's over
-  4,096 and 32,640 (gen-prefill's prefill); each in float32 with TF32 off
+  4,096 and 32,640 (gen-prefill's prefill); DeepSeek-V2-Lite's (64 experts
+  top-6, d_model 2,048, the gates not renormalised) fused over 4 (its
+  decode step) and 64, routed over 4,096 and 32,768; each in float32 with
+  TF32 off
   and in bf16, ``PATH_CALLS`` rising on the case's path alone: the
   kernels' expert sets (the dispatch run with room for every assignment,
   a thousand tokens at a time) equal the plain ones under the near-tie
@@ -210,6 +213,7 @@ def test_moe_apply_makes_no_host_sync(cuda_device):
 # ---------------------------------------------------------------------------
 
 HYBRID = "granite-4.0-h-small"
+MLA_ARCH = "deepseek-v2-lite"       # 64 experts top-6, gates not renormalised
 # (arch, tokens, path)
 FUSED_CASES = [("granite-moe-3b-a800m", 64, "fused"),
                ("granite-moe-3b-a800m", 8, "fused"),
@@ -218,7 +222,9 @@ FUSED_CASES = [("granite-moe-3b-a800m", 64, "fused"),
                (HYBRID, 4096, "routed"),
                (HYBRID, 32768, "routed"),       # xe 3.4 GB in bf16
                ("granite-moe-3b-a800m", 4096, "routed"),
-               ("granite-moe-3b-a800m", 32640, "routed")]
+               ("granite-moe-3b-a800m", 32640, "routed"),
+               (MLA_ARCH, 4, "fused"), (MLA_ARCH, 64, "fused"),
+               (MLA_ARCH, 4096, "routed"), (MLA_ARCH, 32768, "routed")]
 # bf16 outputs: two bf16 steps (module docstring)
 BF16_TOL = 2.0 ** -7
 
@@ -313,7 +319,8 @@ def test_fused_path_matches_the_plain_path(cuda_device, no_tf32, arch,
             xe_p, ge_p, tok_p = TMoE._bucket(x, gates, idx, C, dims)
             del gates, idx
             xe, ge, slots, _ = dispatch(x.float() @ layer.router, x,
-                                        dims.n_experts, dims.top_k, C)
+                                        dims.n_experts, dims.top_k, C,
+                                        renormalize=dims.renormalize)
         assert torch.equal(fused_buckets(slots, n_tokens, C, dims.e_pad),
                            tok_p)
         assert torch.equal(xe, xe_p)
